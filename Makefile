@@ -5,13 +5,19 @@
 PY ?= python
 export PYTHONPATH := src$(if $(PYTHONPATH),:$(PYTHONPATH))
 
-.PHONY: test smoke test-sharded test-quant-pool test-tiered test-spec test-router bench-smoke bench-serve bench serve-demo
+.PHONY: test test-torch smoke test-sharded test-quant-pool test-tiered test-spec test-router bench-smoke bench-serve bench serve-demo
 
 test:
 	$(PY) -m pytest -x -q
 
 smoke:
 	$(PY) -m pytest -x -q -k "not distributed"
+
+# the PyTorch port's parity tests (CPU): the port against the JAX package
+# on the same inputs.  Its CUDA kernels are checked on a GPU by
+# `python3 chip_smoke.py`.
+test-torch:
+	$(PY) -m pytest -q tests/test_torch_*.py
 
 # multi-device leg (CI): the sharded-execution and sharded-page-pool
 # suites on 8 host devices.  The tests spawn their own subprocesses with

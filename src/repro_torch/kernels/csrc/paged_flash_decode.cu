@@ -1,0 +1,182 @@
+// Paged flash-decode partials, read straight from the KV page pool.
+//
+// Replaces: the Pallas fp body `_gqa_page_kernel` behind
+// `repro/kernels/paged_flash_decode.py::paged_flash_decode_partials` (TPU).
+//
+// Inputs: q (B, Sq, H, dh); pools (N, ps, KV, dh); tbl (B, P) int32 page
+// table (-1 = unmapped); qpos (B, Sq) int32 query positions; kv_valid (B,)
+// int32 filled-row bounds.  Output: float32 flash partials m, l
+// (B, Sq, KV, G, S) and acc (B, Sq, KV, G, S, dh) over S splits of the
+// logical page axis, split s covering pages [s*c, (s+1)*c) with
+// c = pages_per_split.  With c = 1 these are exactly the reference's
+// per-logical-page partials; the caller combines the S partials with the
+// reference's `_combine_page_partials`.
+//
+// A page is skipped, and the pool never read for it, when its table entry
+// is < 0, when it starts past the block's largest query position, or at or
+// past kv_valid.  A split whose pages are all skipped writes the exact
+// identities m = -1e30, l = 0, acc = 0, as the reference's skipped pages
+// do.  Inside a split the pages are walked in order with the online
+// softmax, which is the same reduction as the combine.
+//
+// What bounds it on an H100: decode (Sq = 1) does ~4 * G * dh operations
+// per cached K/V row of 2 * dh elements, far below the card's ~295
+// operations per byte, so it is memory-bound: the least time is the
+// mapped, live pages' bytes over 3.35 TB/s.  The design reads each live
+// page once per (slot, KV head) and keeps the gathered window out of
+// device memory: one block per (row tile of Sq*G query rows, split, slot,
+// KV head) reads its own table entries and stages each page in shared
+// memory, 16 rows at a time.  For a resumed chunk (Sq = a whole prefill
+// chunk) the partials would grow as Sq * P; the caller then raises c so
+// that S stays small, and each block walks its c pages in order.
+#include "flash_tile.cuh"
+
+namespace {
+
+constexpr int BK = 16;                  // pool rows staged per step
+
+template <typename T, int DH, int BQ>
+__global__ void __launch_bounds__(4 * BQ)
+paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
+                      const T* __restrict__ vpool, const int* __restrict__ tbl,
+                      const int* __restrict__ qpos,
+                      const int* __restrict__ kv_valid, float* __restrict__ m_out,
+                      float* __restrict__ l_out, float* __restrict__ acc_out,
+                      int Sq, int H, int KV, int ps, int P, int pages_per_split,
+                      int n_splits, float scale) {
+  using Tile = FlashTile<T, DH, BQ, BK>;
+  extern __shared__ float smem[];
+  __shared__ int s_maxq;
+  Tile tile;
+  tile.init(smem);
+  const int b = blockIdx.z / KV, kvh = blockIdx.z % KV;
+  const int split = blockIdx.y, row0 = blockIdx.x * BQ;
+  const int G = H / KV, rows = Sq * G;
+  const int tid = threadIdx.x;
+
+  for (int idx = tid; idx < BQ * DH; idx += Tile::NT) {
+    const int rr = idx / DH, d = idx % DH, R = row0 + rr;
+    const T* src = nullptr;
+    if (R < rows) {
+      const int qi = R / G, h = kvh * G + R % G;
+      src = q + (((size_t)b * Sq + qi) * H + h) * DH + d;
+    }
+    tile.stage_q_elem(rr, d, src, scale);
+  }
+  if (tid == 0) {                       // largest query position of the tile
+    int mq = -1;
+    const int last = min(row0 + BQ, rows) - 1;
+    for (int qi = row0 / G; qi <= last / G; ++qi) mq = max(mq, qpos[b * Sq + qi]);
+    s_maxq = mq;
+  }
+  __syncthreads();
+  const int maxq = s_maxq;
+  const int R = row0 + tile.r;
+  const bool row_valid = R < rows;
+  const int qi = row_valid ? R / G : 0;
+  const int my_qpos = row_valid ? qpos[b * Sq + qi] : -1;
+  const int kvs = kv_valid[b];
+
+  const int j0 = split * pages_per_split;
+  const int j1 = min(j0 + pages_per_split, P);
+  for (int j = j0; j < j1; ++j) {
+    const int page = tbl[b * P + j];
+    for (int sub = 0; sub < ps; sub += BK) {
+      const int kbase = j * ps + sub;
+      // block-uniform skip: unmapped, causally future or unfilled rows
+      if (page < 0 || kbase > maxq || kbase >= kvs) break;
+      for (int idx = tid; idx < BK * DH; idx += Tile::NT) {
+        const int c = idx / DH, d = idx % DH;
+        const size_t off = ((((size_t)page * ps) + sub + c) * KV + kvh) * DH + d;
+        tile.stage_kv_elem(c, d, kpool + off, vpool + off);
+      }
+      __syncthreads();
+      tile.step(kbase, BK, my_qpos, kvs, row_valid);
+    }
+  }
+  if (row_valid) {
+    const size_t o = (((size_t)b * Sq + qi) * KV + kvh) * G + R % G;
+    const size_t os = o * n_splits + split;
+    if (tile.qq == 0) {
+      m_out[os] = tile.m;
+      l_out[os] = tile.l;
+    }
+    float* dst = acc_out + os * DH + tile.qq;
+#pragma unroll
+    for (int i = 0; i < Tile::ND; ++i) dst[4 * i] = tile.acc[i];
+  }
+}
+
+template <typename T, int DH, int BQ>
+int launch(const void* q, const void* kp, const void* vp, const int* tbl,
+           const int* qpos, const int* kvv, float* m, float* l, float* acc,
+           int B, int Sq, int H, int KV, int ps, int P, int pps, int n_splits,
+           cudaStream_t stream) {
+  using Tile = FlashTile<T, DH, BQ, BK>;
+  static bool smem_ok = false;
+  const size_t smem = Tile::smem_bytes();
+  cudaError_t e = allow_smem(paged_partials_kernel<T, DH, BQ>, smem, &smem_ok);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = Sq * (H / KV);
+  dim3 grid((rows + BQ - 1) / BQ, n_splits, B * KV);
+  paged_partials_kernel<T, DH, BQ><<<grid, Tile::NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), tbl, qpos, kvv, m, l, acc, Sq, H, KV, ps, P,
+      pps, n_splits, 1.f / sqrtf((float)DH));
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int DH>
+int pick_bq(const void* q, const void* kp, const void* vp, const int* tbl,
+            const int* qpos, const int* kvv, float* m, float* l, float* acc,
+            int B, int Sq, int H, int KV, int ps, int P, int pps, int ns,
+            cudaStream_t s) {
+  // decode rows (Sq * G) rarely fill a 64-row tile: use 16-row blocks
+  if (Sq * (H / KV) <= 16)
+    return launch<T, DH, 16>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq, H,
+                             KV, ps, P, pps, ns, s);
+  return launch<T, DH, 64>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq, H, KV,
+                           ps, P, pps, ns, s);
+}
+
+template <typename T>
+int dispatch_dh(int dh, const void* q, const void* kp, const void* vp,
+                const int* tbl, const int* qpos, const int* kvv, float* m,
+                float* l, float* acc, int B, int Sq, int H, int KV, int ps,
+                int P, int pps, int ns, cudaStream_t s) {
+  switch (dh) {
+    case 32: return pick_bq<T, 32>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq, H, KV, ps, P, pps, ns, s);
+    case 64: return pick_bq<T, 64>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq, H, KV, ps, P, pps, ns, s);
+    case 128: return pick_bq<T, 128>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq, H, KV, ps, P, pps, ns, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  ps must be a multiple of 16.  All
+// tensors contiguous on the device; n_splits = ceil(P / pages_per_split).
+extern "C" int paged_flash_decode_partials(
+    const void* q, const void* k_pool, const void* v_pool, const void* tbl,
+    const void* qpos, const void* kv_valid, void* m, void* l, void* acc, int B,
+    int Sq, int H, int KV, int dh, int ps, int P, int pages_per_split,
+    int dtype, void* stream) {
+  if (B == 0 || Sq == 0 || P == 0) return 0;
+  if (ps % BK != 0 || pages_per_split < 1) return (int)cudaErrorInvalidValue;
+  const int ns = (P + pages_per_split - 1) / pages_per_split;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* t = static_cast<const int*>(tbl);
+  const int* qp = static_cast<const int*>(qpos);
+  const int* kv = static_cast<const int*>(kv_valid);
+  float* mf = static_cast<float*>(m);
+  float* lf = static_cast<float*>(l);
+  float* af = static_cast<float*>(acc);
+  if (dtype == 0)
+    return dispatch_dh<float>(dh, q, k_pool, v_pool, t, qp, kv, mf, lf, af, B,
+                              Sq, H, KV, ps, P, pages_per_split, ns, s);
+  if (dtype == 1)
+    return dispatch_dh<__nv_bfloat16>(dh, q, k_pool, v_pool, t, qp, kv, mf, lf,
+                                      af, B, Sq, H, KV, ps, P, pages_per_split,
+                                      ns, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,112 @@
+"""Where a serving tick's time goes on the card.
+
+Serves full-size qwen2.5-3b (bf16, random weights) with 8 requests of
+700 prompt tokens, then times, without and with ``torch.profiler``:
+
+  * the prefill ticks (three 256-token chunks per slot: one fresh wave,
+    then resumed waves), and
+  * a window of decode-only ticks (8 active slots).
+
+For each window it prints one JSON line: host wall ms per tick, device
+busy ms per tick (the profiler's summed device time of kernels and
+copies), the device's idle share, host op and stream-sync counts per
+tick, and the device ops that took the most time.  Needs one card.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --ticks 8
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import get_config
+from repro_torch.models.common import require_device
+from repro_torch.models.model import init_params
+from repro_torch.serve import Request, ServeConfig, ServingEngine
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def _window(eng, ticks: int, profiled: bool) -> dict:
+    torch.cuda.synchronize()
+    if not profiled:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.tick()
+        torch.cuda.synchronize()
+        return {"wall_ms_per_tick": (time.perf_counter() - t0) * 1e3 / ticks}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.tick()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    # device rows only (kernels, memcpy, memset): an aten op's own row
+    # repeats the device time of the kernels it launched
+    dev = [(e.key, _device_us(e), e.count) for e in avgs
+           if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    busy = sum(r[1] for r in dev) / 1e3
+    dev.sort(key=lambda r: -r[1])
+    host = {e.key: e.count for e in avgs if e.device_type == DeviceType.CPU}
+    return {"wall_ms_per_tick": wall / ticks,
+            "device_busy_ms_per_tick": busy / ticks,
+            "device_idle_share": 1 - busy / wall,
+            "aten_ops_per_tick": sum(n for k, n in host.items()
+                                     if k.startswith("aten::")) / ticks,
+            "stream_syncs_per_tick": host.get("cudaStreamSynchronize", 0)
+            / ticks,
+            "nonzero_per_tick": host.get("aten::nonzero", 0) / ticks,
+            "top_device_ops": [{"op": k[:80], "ms_per_tick": us / 1e3 / ticks,
+                                "calls_per_tick": n / ticks}
+                               for k, us, n in dev[:12]]}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--ticks", type=int, default=8)
+    args = ap.parse_args(argv)
+    dev = require_device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    cfg = get_config(args.arch)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    sc = ServeConfig(max_batch=8, max_prompt=256, page_size=16,
+                     max_seq=2048, max_new_tokens=4 * args.ticks + 8)
+    rng = np.random.RandomState(0)
+    for profiled in (False, True):
+        eng = ServingEngine(cfg, params, sc, device=dev)
+        eng.warmup()
+        for i in range(sc.max_batch):
+            eng.submit(Request(i, [int(t) for t in
+                                   rng.randint(0, cfg.vocab_size, 700)]))
+        out = {"card": card, "arch": cfg.name, "profiled": profiled}
+        out["prefill"] = _window(eng, 3, profiled)      # 3 chunks of 256
+        if eng.sched.has_prefill_work():
+            raise RuntimeError("prefill did not finish in 3 ticks")
+        out["decode"] = _window(eng, args.ticks, profiled)
+        out["decode"]["active_slots"] = len(eng.sched.decode_slots())
+        print(json.dumps(out), flush=True)
+        del eng
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,156 @@
+"""GQA attention over the paged KV pool.
+
+The counterpart of ``repro.models.attention`` for one device.  The
+reference's mesh, ``shard_map`` and ``lshard`` branches collapse away, and
+so do its replicated-pool helpers (``_chunked_attention_local``,
+``_resume_attention_local``, ``_decode_attention_local``): the port runs
+the two kernels instead, by default, on every dispatch.
+
+  * a FRESH chunk (mode='chunk', no offset) runs the causal flash kernel
+    over the chunk's own K/V, then scatters them into the pool;
+  * a RESUMED chunk (mode='chunk' with offset) and a paged DECODE step
+    scatter the new K/V into the pool first, then run the paged
+    flash-decode kernel through the page table, followed by the
+    reference's combine :func:`_combine_page_partials`.
+
+The pool is written in place (:func:`~repro_torch.models.common.
+paged_scatter`).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_flash_decode import paged_flash_decode_partials
+from repro_torch.models.common import (ParamSpec, broadcast_offset,
+                                       chunk_lengths, chunk_valid_mask, dense,
+                                       paged_scatter, rope)
+
+NEG_INF = -1e30
+# Bytes the float32 partials of one dispatch may take.  Per-page partials
+# of a resumed chunk grow as Sq x P; above this the pages are walked in
+# splits of several pages inside the kernel (see paged_flash_decode).
+PARTIALS_BYTES_BUDGET = 64 << 20
+
+
+def attn_specs(cfg) -> dict:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    specs = {
+        "wq": ParamSpec((d, h * dh)),
+        "wk": ParamSpec((d, kv * dh)),
+        "wv": ParamSpec((d, kv * dh)),
+        "wo": ParamSpec((h * dh, d)),
+    }
+    if cfg.qkv_bias:
+        specs["bq"] = ParamSpec((h * dh,), init="zeros")
+        specs["bk"] = ParamSpec((kv * dh,), init="zeros")
+        specs["bv"] = ParamSpec((kv * dh,), init="zeros")
+    if cfg.qk_norm:
+        raise ValueError(f"{cfg.name}: qk_norm is not in this slice of the "
+                         "port (ROADMAP queue 1 item 8)")
+    return specs
+
+
+def paged_kv_cache_spec(cfg, num_pages: int, page_size: int) -> dict:
+    """One (num_pages, page_size, KV, dh) pool per layer shared by every
+    slot (fp storage), mapped through the engine's per-slot page table."""
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    return {"k": ParamSpec((num_pages, page_size, kv, dh), init="zeros"),
+            "v": ParamSpec((num_pages, page_size, kv, dh), init="zeros")}
+
+
+def _pages_per_split(b: int, sq: int, hq: int, p: int, dv: int) -> int:
+    """Pages each kernel block walks: 1 (the reference's per-page
+    partials) unless that would put more than PARTIALS_BYTES_BUDGET in the
+    float32 ``acc``; decode at serving widths stays at 1."""
+    per_split = max(1, b * sq * hq * dv * 4)
+    n_split = max(1, min(p, PARTIALS_BYTES_BUDGET // per_split))
+    return -(-p // n_split)
+
+
+def _page_partials(q, k_pool, v_pool, tbl, qpos, kv_valid):
+    """Flash partials of ``q`` against the pool through ``tbl``: m, l
+    (B, Sq, KV, G, S) and acc (..., S, dv) over S page splits."""
+    b, sq, hq, _ = q.shape
+    c = _pages_per_split(b, sq, hq, tbl.shape[1], v_pool.shape[-1])
+    return paged_flash_decode_partials(k_pool, v_pool, q, tbl, qpos,
+                                       kv_valid, pages_per_split=c)
+
+
+def _combine_page_partials(m, l, acc):
+    """Flash-decoding reduction over the page (split) axis, as the
+    reference: fully-masked pages and slots contribute exact zeros."""
+    mg = m.amax(dim=-1)
+    corr = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - mg[..., None]))
+    lg = torch.sum(l * corr, dim=-1)
+    accg = torch.sum(acc * corr[..., None], dim=-2)
+    return accg / torch.clamp(lg, min=1e-30)[..., None]
+
+
+def _paged_attend(q, k, v, cache, pages, t, ok, qpos, kv_valid):
+    """Scatter the new rows at logical positions ``t`` (where ``ok``),
+    then attend ``q`` over the slots' cached windows through the table."""
+    paged_scatter(cache["k"], pages, k, t, ok)
+    paged_scatter(cache["v"], pages, v, t, ok)
+    m, l, acc = _page_partials(q, cache["k"], cache["v"], pages, qpos,
+                               kv_valid)
+    o = _combine_page_partials(m, l, acc)
+    b, sq = q.shape[:2]
+    return o.reshape(b, sq, -1, o.shape[-1]).to(q.dtype)
+
+
+def apply_attention(p, x: torch.Tensor, cfg, *, cache: dict, mode: str,
+                    pos, pages: torch.Tensor,
+                    offset: Optional[torch.Tensor] = None,
+                    ) -> Tuple[torch.Tensor, dict]:
+    """Attention sublayer: QKV projections, RoPE, attention, out proj.
+
+    mode 'chunk': ``pos`` is the (B,) valid length of a right-padded chunk
+    (0 = inactive slot).  Without ``offset`` the chunk's tokens sit at rows
+    [0, len); with a (B,) ``offset`` at [offset, offset + len), attending
+    the cached history [0, offset) too.  mode 'decode': ``pos`` is the (B,)
+    row of each slot's token (-1 = inactive slot).  ``pages``: (B, P) int32
+    page table into ``cache`` = {"k", "v"} pools of (N, ps, KV, dh), which
+    are updated in place and returned."""
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dev = x.device
+    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, h, dh)
+    k = dense(x, p["wk"], p.get("bk")).reshape(b, s, kv, dh)
+    v = dense(x, p["wv"], p.get("bv")).reshape(b, s, kv, dh)
+    ar = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+    if mode == "chunk":
+        len_b = chunk_lengths(pos, b, dev)
+        ok = chunk_valid_mask(len_b, s)
+        off_b = (torch.zeros((b,), dtype=torch.int32, device=dev)
+                 if offset is None else broadcast_offset(offset, b, dev))
+        positions = off_b[:, None] + ar
+    elif mode == "decode":
+        if s != 1:
+            raise ValueError(f"mode='decode' takes one token per slot, "
+                             f"got {s}")
+        pos_b = broadcast_offset(pos, b, dev)
+        positions = torch.clamp(pos_b[:, None] + ar, min=0)
+    else:
+        raise ValueError(f"mode {mode!r}: this slice of the port serves "
+                         "'chunk' and 'decode' (ROADMAP queue 1 item 6)")
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if mode == "chunk" and offset is None:
+        # fresh chunk: one causal pass over the padded chunk (padded
+        # queries sit after every valid token, so they never leak into
+        # valid outputs), then the valid rows go into the pool.
+        o = flash_attention(q, k, v, kv_valid=s)
+        paged_scatter(cache["k"], pages, k, positions, ok)
+        paged_scatter(cache["v"], pages, v, positions, ok)
+    elif mode == "chunk":
+        o = _paged_attend(q, k, v, cache, pages, positions, ok, positions,
+                          off_b + len_b)
+    else:
+        t = pos_b[:, None]
+        o = _paged_attend(q, k, v, cache, pages, t, t >= 0, t, pos_b + 1)
+    y = dense(o.reshape(b, s, h * dh), p["wo"])
+    return y, cache

@@ -1,0 +1,171 @@
+"""Declarative parameters and shared layers of the port.
+
+The counterpart of ``repro.models.common``.  Parameters are declared as
+trees of :class:`ParamSpec` (shape + init) and materialized with an
+explicit ``torch.Generator`` on an explicit device.  The init follows the
+reference's distributions (normal with std ``1/sqrt(fan_in)``, ``embed``
+with std 1, zeros for biases, ones for norm weights) but not its bits:
+``jax.random`` and torch generators give different numbers from one seed,
+so parity tests bridge the JAX weights instead (:mod:`repro_torch.weights`).
+
+Norms, RoPE and the SiLU gate are computed in float32 and cast back, as
+the reference does.  ``paged_scatter`` writes the pool IN PLACE (JAX
+returns a new array; here the pool is a tensor the engine owns).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+def require_device(device) -> torch.device:
+    """Resolve an entry point's ``device`` argument.  A CUDA device with
+    no card present raises: the port never carries on silently on the
+    CPU.  Pass ``device="cpu"`` to run the plain PyTorch versions of the
+    kernels (the tests do)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but torch.cuda.is_available() is False; "
+            "pass device='cpu' explicitly to run the plain PyTorch path")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    init: str = "normal"           # normal | zeros | ones | embed
+    scale: Optional[float] = None  # stddev override (default 1/sqrt(fan_in))
+    dtype: Optional[torch.dtype] = None  # override model dtype (norms: f32)
+
+    def std(self) -> float:
+        if self.init == "embed":
+            return 1.0
+        if self.scale is not None:
+            return self.scale
+        fan_in = self.shape[0] if len(self.shape) > 1 else self.shape[-1]
+        return fan_in ** -0.5
+
+
+def materialize(spec: ParamSpec, generator: Optional[torch.Generator],
+                dtype: torch.dtype, device) -> torch.Tensor:
+    dt = spec.dtype or dtype
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dt, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dt, device=device)
+    v = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (v * spec.std()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Shared layers.
+# ---------------------------------------------------------------------------
+
+def dense(x: torch.Tensor, w: torch.Tensor,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = x @ w (+ bias) with a raw (K, N) weight."""
+    y = x @ w
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def chunk_lengths(pos, batch: int, device=None) -> torch.Tensor:
+    """Per-slot valid lengths from a mode='chunk' ``pos`` ((B,) or scalar)."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=device)
+    return torch.broadcast_to(pos.reshape(-1), (batch,)).contiguous()
+
+
+def chunk_valid_mask(len_b: torch.Tensor, seq: int) -> torch.Tensor:
+    """(B, S) True at valid (non-padding) positions of a right-padded
+    chunk whose per-slot valid counts are ``len_b``."""
+    ar = torch.arange(seq, dtype=torch.int32, device=len_b.device)
+    return ar[None, :] < len_b[:, None]
+
+
+def broadcast_offset(offset, batch: int, device=None) -> torch.Tensor:
+    """Per-slot start rows from a resumable-chunk ``offset`` ((B,) or
+    scalar)."""
+    off = torch.as_tensor(offset, dtype=torch.int32, device=device)
+    return torch.broadcast_to(off.reshape(-1), (batch,)).contiguous()
+
+
+def paged_gather(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
+    """Gather each slot's logical cache window out of a paged row pool.
+
+    ``pool``: (num_pages, page_size, *rest); ``pages``: (B, P) int32 page
+    table (-1 = unmapped).  Returns (B, P*page_size, *rest) rows in
+    logical order.  Rows under unmapped entries are garbage (the index
+    clamps) and MUST be masked by the caller.  The port's attention never
+    builds this window on the card: it is the layout definition and the
+    plain version the paged kernel is held against."""
+    n, ps = pool.shape[:2]
+    flat = pool.reshape((n * ps,) + tuple(pool.shape[2:]))
+    ar = torch.arange(ps, dtype=torch.int64, device=pool.device)
+    idx = pages.clamp_min(0).to(torch.int64)[:, :, None] * ps + ar
+    return flat[idx.reshape(pages.shape[0], -1)]
+
+
+def paged_scatter(pool: torch.Tensor, pages: torch.Tensor,
+                  rows: torch.Tensor, t: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """Scatter per-slot rows into a paged pool at logical positions,
+    IN PLACE, and return the pool.
+
+    ``pool``: (num_pages, page_size, *rest); ``pages``: (B, P) page
+    table; ``rows``: (B, S, *rest); ``t``: (B, S) int32 logical
+    positions; ``valid``: (B, S) bool.  Writes that are invalid, negative,
+    past the slot's logical window, or land on an unmapped (-1) entry are
+    dropped, as the reference's ``mode="drop"`` scatter drops them."""
+    n, ps = pool.shape[:2]
+    p = pages.shape[1]
+    t = t.to(torch.int64)
+    page = torch.gather(pages.to(torch.int64), 1,
+                        torch.clamp(torch.div(t, ps, rounding_mode="floor"),
+                                    0, p - 1))
+    ok = valid & (page >= 0) & (t >= 0) & (t < p * ps)
+    dest = (page * ps + torch.remainder(t, ps))[ok]
+    flat = pool.view((n * ps,) + tuple(pool.shape[2:]))
+    flat[dest] = rows[ok].to(pool.dtype)
+    return pool
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    h = x.float()
+    h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
+    return (h * w.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    h = x.float()
+    mu = torch.mean(h, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(h - mu), dim=-1, keepdim=True)
+    h = (h - mu) * torch.rsqrt(var + eps)
+    return (h * w.float() + b.float()).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding, NeoX half-split convention.
+
+    x: (B, S, H, D), positions: (B, S) int32."""
+    d = x.shape[-1]
+    half = d // 2
+    ar = torch.arange(0, half, dtype=torch.float32, device=x.device)
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                  device=x.device), -ar / half)
+    ang = positions[..., None].float() * freq          # (B, S, half)
+    sin, cos = torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens.to(torch.int64)]

@@ -1,0 +1,135 @@
+"""LM assembly: embedding -> blocks -> final norm -> lm_head.
+
+The counterpart of ``repro.models.model`` for the paged serving path.
+The reference scans stacked parameters with ``lax.scan``; the port keeps
+one :class:`~repro_torch.models.blocks.AttnMlpBlock` per layer in an
+``nn.ModuleList`` and loops over it.  Only ``attn_mlp`` scan patterns are
+in this slice; other block kinds raise.
+
+The paged cache keeps the reference's layout, one pool per stage with
+leaves (layers, num_pages, page_size, KV, dh) and the page axis at 1, so
+later swap and wire slices move the same bytes.  ``forward`` updates the
+pools in place.
+
+  mode='chunk'  — chunked prefill: ``pos`` is the (B,) valid length of a
+                  right-padded chunk (0 = inactive slot); with ``offset``
+                  the chunk is RESUMED at rows [offset, offset + len)
+  mode='decode' — one token per slot at row ``pos`` (B,) (-1 = inactive)
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models.attention import paged_kv_cache_spec
+from repro_torch.models.blocks import (AttnMlpBlock, apply_norm,
+                                       attn_mlp_specs, norm_specs)
+from repro_torch.models.common import (ParamSpec, dense, embed_lookup,
+                                       materialize, require_device)
+from repro_torch.models.config import ArchConfig
+
+
+def _n_layers(cfg: ArchConfig) -> int:
+    """Block count of a single ``attn_mlp`` scan — the only block program
+    this slice runs."""
+    if cfg.input_mode != "tokens" or len(cfg.pattern) != 1 or \
+            cfg.pattern[0][0] != "scan" or cfg.pattern[0][1] != "attn_mlp":
+        raise ValueError(
+            f"{cfg.name}: pattern {cfg.pattern} (input {cfg.input_mode}) is "
+            "not in this slice of the port, which serves token-input "
+            "attn_mlp stacks (ROADMAP queue 1 items 8-13)")
+    return cfg.pattern[0][2]
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    d, vp = cfg.d_model, cfg.padded_vocab
+    return {
+        "embed": ParamSpec((vp, d), init="embed", scale=0.02),
+        "blocks": [attn_mlp_specs(cfg) for _ in range(_n_layers(cfg))],
+        "final_norm": norm_specs(cfg),
+        "lm_head": ParamSpec((d, vp), scale=0.02),
+    }
+
+
+def cache_specs(cfg: ArchConfig, num_pages: int, page_size: int) -> list:
+    """Paged cache spec: one stage of stacked (layers, ...) pools."""
+    n = _n_layers(cfg)
+    return [{name: ParamSpec((n,) + s.shape, init=s.init)
+             for name, s in paged_kv_cache_spec(cfg, num_pages,
+                                                page_size).items()}]
+
+
+class Transformer(nn.Module):
+    """The model's weights: ``embed``, ``blocks`` (ModuleList),
+    ``final_norm`` and ``lm_head``, all frozen."""
+
+    def __init__(self, cfg: ArchConfig, leaves: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Parameter(leaves["embed"], requires_grad=False)
+        self.blocks = nn.ModuleList(AttnMlpBlock(cfg, b)
+                                    for b in leaves["blocks"])
+        self.final_norm = nn.ParameterDict(
+            {k: nn.Parameter(v, requires_grad=False)
+             for k, v in leaves["final_norm"].items()})
+        self.lm_head = nn.Parameter(leaves["lm_head"], requires_grad=False)
+
+    def tree(self) -> dict:
+        """The weights as the nested dict ``param_specs`` declares."""
+        return {"embed": self.embed.data,
+                "blocks": [b.tree() for b in self.blocks],
+                "final_norm": {k: v.data for k, v in
+                               self.final_norm.items()},
+                "lm_head": self.lm_head.data}
+
+
+def forward(params: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
+            cache: list, mode: str, pos,
+            pages: torch.Tensor, offset: Optional[torch.Tensor] = None,
+            ) -> Tuple[torch.Tensor, list, float]:
+    """Returns (logits (B, S, padded_vocab), cache, aux_loss).
+
+    ``cache`` is the paged cache of :func:`init_paged_cache` and is
+    updated in place; ``pages`` the (B, P) int32 page table; ``offset``
+    the (B,) int32 start rows of a resumed chunk (mode='chunk' only)."""
+    x = embed_lookup(params.embed, inputs)
+    stage = cache[0]
+    for i, block in enumerate(params.blocks):
+        layer = {"k": stage["k"][i], "v": stage["v"][i]}
+        x, _ = block(x, layer, mode, pos, pages, offset)
+    x = apply_norm(params.final_norm, x, cfg)
+    logits = dense(x, params.lm_head)
+    return logits, cache, 0.0
+
+
+# ---------------------------------------------------------------------------
+# Init entry points.
+# ---------------------------------------------------------------------------
+
+def _materialize_tree(tree, generator, dtype, device):
+    if isinstance(tree, ParamSpec):
+        return materialize(tree, generator, dtype, device)
+    if isinstance(tree, dict):
+        return {k: _materialize_tree(v, generator, dtype, device)
+                for k, v in tree.items()}
+    return [_materialize_tree(v, generator, dtype, device) for v in tree]
+
+
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
+                device="cuda") -> Transformer:
+    """Random weights with the reference's distributions (not its bits),
+    drawn from ``generator`` (which must live on ``device``)."""
+    dev = require_device(device)
+    return Transformer(cfg, _materialize_tree(param_specs(cfg), generator,
+                                              cfg.dtype, dev))
+
+
+def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int, *,
+                     device="cuda") -> List[Dict[str, torch.Tensor]]:
+    """Zeroed paged cache: per stage, (layers, num_pages, page_size, KV,
+    dh) pools of the model's dtype."""
+    dev = require_device(device)
+    return _materialize_tree(cache_specs(cfg, num_pages, page_size), None,
+                             cfg.dtype, dev)

@@ -1,0 +1,522 @@
+"""Serving EXECUTOR: session API, dispatch, device data movement.
+
+The counterpart of ``repro.serve.engine`` for greedy paged serving on one
+card.  Three layers, one owner per concern, as in the reference:
+
+  * ``scheduler.py`` — POLICY: admission order, chunk budgets, prefix
+    matching, the deadline ledger;
+  * ``allocator.py`` — ACCOUNTING: free list, refcounted page tables,
+    copy-on-write, growth reservations, the 32-entry IOTLB;
+  * this file — EXECUTION: owns the weights, the paged KV pool and the
+    two steps (chunked prefill, decode), stages each tick's inputs on the
+    host in numpy, applies page copies, and samples greedily.
+
+Session surface: ``submit(req)`` returns a :class:`RequestHandle` at once
+(the request waits on the scheduler's pending queue); ``tick()`` advances
+the serving clock, admits into free slots with at most one prefill
+dispatch, then runs one decode dispatch for every prompt-complete slot.
+``drain()`` finishes everything and closes the engine; ``run()`` submits
+and ticks until idle.  Fresh prompts and resumed chunks dispatch as
+separate waves, as the reference does, so each chunk's numerics depend
+only on its own offset.
+
+Every attention dispatch runs a CUDA kernel on the card: the flash
+forward for a fresh wave, the paged flash-decode partials for a resumed
+wave and for decode.  ``stats()`` reports the kernel launches of the last
+dispatch and in total.
+
+Not in this slice (ServeConfig rejects them): swap preemption and
+overcommit, the tiered pool and oversized contexts, speculative decoding,
+decode twins, quantized pages, temperature sampling.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.iotlb import FaultRecord, IotlbFault
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import paged_flash_decode as _paged
+from repro_torch.models.common import require_device
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.model import Transformer, init_paged_cache
+from repro_torch.serve.allocator import PageAllocator
+from repro_torch.serve.config import Request, ServeConfig
+from repro_torch.serve.scheduler import Scheduler
+from repro_torch.train.step import (make_paged_chunked_prefill_step,
+                                    make_paged_decode_step)
+
+_DEFER = "defer"                    # admission verdict: retry after frees
+
+
+def _kernel_launches() -> int:
+    return _flash.launches + _paged.launches
+
+
+class RequestHandle:
+    """Client-side view of one submitted request (see the reference's
+    ``RequestHandle``): non-blocking ``status``/``tokens_so_far``, and
+    ``stream``/``result``, which drive ``engine.tick()`` themselves."""
+
+    def __init__(self, engine: "ServingEngine", req: Request):
+        self._eng = engine
+        self.req = req
+
+    @property
+    def status(self) -> str:
+        """'pending' | 'running' | 'done' | 'failed'."""
+        if self.req.done:
+            return "failed" if self.req.failed else "done"
+        return self._eng.sched.state_of(self.req)
+
+    @property
+    def tokens_so_far(self) -> List[int]:
+        return list(self.req.out_tokens)
+
+    def stream(self):
+        """Yield tokens as decode emits them, ticking the engine when
+        none are buffered."""
+        sent = 0
+        while True:
+            while sent < len(self.req.out_tokens):
+                yield self.req.out_tokens[sent]
+                sent += 1
+            if self.req.done:
+                return
+            self._eng.tick()
+
+    def result(self) -> Request:
+        while not self.req.done:
+            self._eng.tick()
+        return self.req
+
+    def __repr__(self):
+        return (f"RequestHandle(rid={self.req.rid}, status={self.status!r}, "
+                f"tokens={len(self.req.out_tokens)})")
+
+
+class ServingEngine:
+    def __init__(self, cfg: ArchConfig, params: Transformer,
+                 serve_cfg: ServeConfig, *, device="cuda"):
+        self.device = require_device(device)
+        pdev, want = params.embed.device, self.device
+        if pdev.type != want.type or (
+                want.index is not None and pdev.index != want.index):
+            raise ValueError(f"params live on {pdev}, engine device is "
+                             f"{self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.sc = serve_cfg
+        bsz, ps = serve_cfg.max_batch, serve_cfg.page_size
+        self.pages_per_slot = -(-serve_cfg.slot_rows // ps)
+        self._slot_span = self.pages_per_slot * ps
+        self.num_pages = (serve_cfg.num_pages
+                          if serve_cfg.num_pages is not None
+                          else bsz * self.pages_per_slot)
+        self.cache = init_paged_cache(cfg, self.num_pages, ps,
+                                      device=self.device)
+        self._decode = make_paged_decode_step(cfg)
+        self._prefill = make_paged_chunked_prefill_step(cfg)
+        self.alloc = PageAllocator(self.num_pages, ps, bsz,
+                                   self.pages_per_slot)
+        self.sched = Scheduler(bsz, serve_cfg.max_prompt)
+        self.positions = np.zeros((bsz,), np.int32)
+        self.last_token = np.zeros((bsz,), np.int32)
+        self.completed: List[Request] = []
+        self.peak_active = 0        # high-water concurrency
+        self.peak_pages = 0         # high-water pool pages in use
+        self.n_preemptions = 0      # no swap in this slice: stays 0
+        self.n_cow_copies = 0
+        self.n_shared_admissions = 0
+        self.n_dispatches = 0
+        self.kernel_launches = 0    # CUDA kernel launches, all dispatches
+        self.last_dispatch_launches = 0
+        self._prefilled_since_step = False   # one prefill dispatch per tick
+        self.tick_no = 0            # the serving clock (deadline ledger)
+        self._closed = False        # set by drain(): no further submits
+
+    # -- views ----------------------------------------------------------------
+    @property
+    def iotlb(self):
+        return self.alloc.iotlb
+
+    def pages_in_use(self) -> int:
+        return self.alloc.pages_in_use()
+
+    def stats(self) -> dict:
+        return {"ticks": self.tick_no, "peak_active": self.peak_active,
+                "peak_pages": self.peak_pages,
+                "n_preemptions": self.n_preemptions,
+                "n_cow_copies": self.n_cow_copies,
+                "n_shared_admissions": self.n_shared_admissions,
+                "n_dispatches": self.n_dispatches,
+                "kernel_launches": self.kernel_launches,
+                "last_dispatch_launches": self.last_dispatch_launches}
+
+    # -- page demand --------------------------------------------------------
+    def _max_pages(self, req: Request) -> int:
+        """Pages covering every row the request could ever write: the
+        prompt plus decode writes up to row len + max_new_tokens - 2 (the
+        last sampled token is never cached)."""
+        last_row = len(req.prompt) - 1
+        if self.sc.max_new_tokens >= 2:
+            last_row = len(req.prompt) + self.sc.max_new_tokens - 2
+        return last_row // self.sc.page_size + 1
+
+    def _claim_count(self, req: Request) -> int:
+        """Pages claimed at admission: the prompt's rows plus the first
+        decode write row (only when a decode tick will happen)."""
+        last_row = len(req.prompt) - 1
+        if self.sc.max_new_tokens >= 2:
+            last_row = len(req.prompt)
+        return last_row // self.sc.page_size + 1
+
+    def _pages_dev(self) -> torch.Tensor:
+        return torch.from_numpy(self.alloc.page_table).to(self.device)
+
+    # -- admission ----------------------------------------------------------
+    def _reject(self, req: Request) -> None:
+        if not req.done:
+            req.failed = True
+            req.done = True
+            self.sched.note_terminal(req)
+            self.completed.append(req)
+
+    def _fault_reject(self, req: Request, kind: str, start: int,
+                      length: int) -> None:
+        """Record the fault, reject the request, and raise when strict."""
+        self.iotlb.faults.append(FaultRecord(kind, start, length, True))
+        self._reject(req)
+        if self.sc.strict_iotlb:
+            raise IotlbFault(kind, f"request {req.rid}: range "
+                             f"[{start}, {start + length}) write=True")
+
+    def _admissible(self, slot: int, req: Request):
+        """(verdict, share): verdict True (admit), False (rejected) or
+        _DEFER (transient page shortage); ``share`` the prefix-sharing
+        plan (resident slot, rows), (None, 0) when not sharing."""
+        no_share = (None, 0)
+        if not req.prompt:
+            self._reject(req)
+            return False, no_share
+        demand = self._max_pages(req)
+        if demand > self.num_pages:
+            self._fault_reject(req, "capacity", slot * self._slot_span,
+                               demand * self.sc.page_size)
+            return False, no_share
+        share = (self.sched.shared_prefix(req.prompt, self.sc.page_size)
+                 if self.sc.prefix_sharing else no_share)
+        demand -= share[1] // self.sc.page_size    # shared pages are free
+        if demand > self.alloc.reserved_free():
+            return _DEFER, no_share
+        return True, share
+
+    def _claim_pages(self, slot: int, req: Request,
+                     share) -> Tuple[int, List[Tuple[int, int]]]:
+        """Claim the prompt's pages plus the first decode page; whole
+        shared pages are refcount-mapped from the resident slot and the
+        divergent partial page is COW-copied.  Returns (prefill start
+        row, page copies to apply)."""
+        ps = self.sc.page_size
+        needed = self._claim_count(req)
+        copies: List[Tuple[int, int]] = []
+        start_row, start_j = 0, 0
+        src, rows = share
+        if src is not None and rows > 0:
+            nfull = rows // ps
+            for j in range(nfull):
+                self.alloc.share(slot, j, int(self.alloc.page_table[src, j]))
+            start_row, start_j = rows, nfull
+            if rows % ps:
+                self.alloc.share(slot, nfull,
+                                 int(self.alloc.page_table[src, nfull]))
+                copies.append(self.alloc.privatize(slot, nfull))
+                start_j = nfull + 1
+            self.n_shared_admissions += 1
+        for j in range(start_j, needed):
+            if not self.alloc.alloc(slot, j):
+                raise RuntimeError("free-page count was vetted in "
+                                   "_admissible")
+        self.alloc.growth_due[slot] = self._max_pages(req) - needed
+        for j in range(needed):
+            if not self.alloc.check_write(slot, j * ps, ps, strict=False):
+                raise IotlbFault("miss",
+                                 f"request {req.rid}: page {j} not covered")
+        return start_row, copies
+
+    def _admission_wave(self) -> int:
+        """Fill free slots in the pending queue's order, then one prefill
+        dispatch covering new and resumed slots."""
+        placed: List[tuple] = []
+        copies: List[Tuple[int, int]] = []
+        try:
+            for slot in self.sched.free_slots():
+                got, share = None, (None, 0)
+                while self.sched.has_pending() and got is None:
+                    req = self.sched.pop_pending()
+                    if req.done:
+                        continue
+                    verdict, share = self._admissible(slot, req)
+                    if verdict is _DEFER:
+                        self.sched.defer_pending(req)
+                        break
+                    if verdict:
+                        got = req
+                if got is None:
+                    break
+                start_row, cps = self._claim_pages(slot, got, share)
+                copies.extend(cps)
+                self.sched.place(slot, got, prefill_done=start_row)
+                placed.append((slot, got))
+        except IotlbFault:
+            # strict fault mid-wave: hand back the requests vetted so far
+            # and their pages, so a caller that catches it loses nothing.
+            for slot, req in reversed(placed):
+                self.alloc.release_slot(slot)
+                self.sched.release(slot)
+                self.sched.defer_pending(req)
+            raise
+        if placed:
+            self.peak_active = max(self.peak_active,
+                                   len(self.sched.active()))
+            self._apply_copies(copies)
+            self._prefill_tick()
+        return len(placed)
+
+    def warmup(self) -> None:
+        """Build the kernels and run each dispatch once at its serving
+        shape with every slot inactive (zero lengths, positions -1), so
+        no cache row is written and nothing is admitted."""
+        bsz, sp = self.sc.max_batch, self.sc.max_prompt
+        dev = self.device
+        z_tok = torch.zeros((bsz, sp), dtype=torch.int32, device=dev)
+        z_len = torch.zeros((bsz,), dtype=torch.int32, device=dev)
+        one = torch.zeros((bsz, 1), dtype=torch.int32, device=dev)
+        inactive = torch.full((bsz,), -1, dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            self._prefill(self.params, self.cache, z_tok, z_len,
+                          self._pages_dev(), None)
+            self._prefill(self.params, self.cache, z_tok, z_len,
+                          self._pages_dev(), z_len)
+            self._decode(self.params, self.cache, one, inactive,
+                         self._pages_dev())
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def _dispatch(self, step, *args):
+        """Run one prefill or decode step, counting its kernel launches."""
+        self.peak_pages = max(self.peak_pages, self.alloc.pages_in_use())
+        before = _kernel_launches()
+        with torch.inference_mode():
+            logits, self.cache = step(self.params, self.cache, *args)
+        self.n_dispatches += 1
+        self.last_dispatch_launches = _kernel_launches() - before
+        self.kernel_launches += self.last_dispatch_launches
+        return logits
+
+    # -- resumable chunked prefill ------------------------------------------
+    def _prefill_tick(self) -> None:
+        """ONE chunked-prefill wave for every slot owing prompt rows:
+        fresh admissions and resumed chunks dispatch separately (flash
+        kernel resp. paged kernel).  Slots whose prompt completes sample
+        their first token."""
+        work = self.sched.prefill_plan()
+        if not work:
+            return
+        self._prefilled_since_step = True
+        for group in ([w for w in work if w[1] == 0],
+                      [w for w in work if w[1] > 0]):
+            if group:
+                self._prefill_dispatch(group)
+
+    def _prefill_dispatch(self, work) -> None:
+        bsz, sp, ps = self.sc.max_batch, self.sc.max_prompt, self.sc.page_size
+        copies = []
+        for slot, off, toks in work:
+            # COW barrier + page-granular write coverage for the rows this
+            # chunk writes (true misses fault before any cache mutation)
+            for j in range(off // ps, (off + len(toks) - 1) // ps + 1):
+                cp = self.alloc.privatize(slot, j)
+                if cp is not None:
+                    copies.append(cp)
+                self.alloc.check_write(slot, j * ps, ps,
+                                       strict=self.sc.strict_iotlb)
+        self._apply_copies(copies)
+        toks_np = np.zeros((bsz, sp), np.int32)
+        lens_np = np.zeros((bsz,), np.int32)
+        offs_np = np.zeros((bsz,), np.int32)
+        for slot, off, toks in work:
+            toks_np[slot, :len(toks)] = toks
+            lens_np[slot] = len(toks)
+            offs_np[slot] = off
+        dev = self.device
+        offs = (torch.from_numpy(offs_np).to(dev) if offs_np.any()
+                else None)
+        logits = self._dispatch(
+            self._prefill, torch.from_numpy(toks_np).to(dev),
+            torch.from_numpy(lens_np).to(dev), self._pages_dev(), offs)
+        finishes = any(
+            off + len(toks) >= len(self.sched.slots[slot].req.prompt)
+            for slot, off, toks in work)
+        firsts = self._sample(logits) if finishes else None
+        lg_np = (logits.float().cpu().numpy() if self.sc.record_logits
+                 else None)
+        for slot, off, chunk_toks in work:
+            meta = self.sched.slots[slot]
+            meta.prefill_done = off + len(chunk_toks)
+            if not meta.prefilled:
+                continue            # more chunks to come; logits discarded
+            req = meta.req
+            first = int(firsts[slot])
+            self.positions[slot] = len(req.prompt)
+            self.last_token[slot] = first
+            req.out_tokens.append(first)    # the post-prompt prediction
+            self.sched.note_first_token(req, self.tick_no)
+            if lg_np is not None:
+                req.logits.append(lg_np[slot].copy())
+            if first == self.sc.eos_id or \
+                    len(req.out_tokens) >= self.sc.max_new_tokens:
+                self._finish(slot)
+
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        """Greedy: argmax over the PADDED vocab in float32 (lowest index
+        on ties), as the reference."""
+        return logits.float().argmax(dim=-1).cpu().numpy()
+
+    def _finish(self, slot: int):
+        req = self.sched.slots[slot].req
+        req.done = True
+        self.sched.note_terminal(req)
+        self.completed.append(req)
+        self.sched.release(slot)
+        self.alloc.release_slot(slot)   # refs return to the pool
+
+    def _apply_copies(self, copies: List[Tuple[int, int]]) -> None:
+        """Apply allocator COW copies (src phys -> dst phys) to every pool
+        leaf (layers, pages, ...), in place."""
+        if not copies:
+            return
+        src = torch.tensor([c[0] for c in copies], device=self.device)
+        dst = torch.tensor([c[1] for c in copies], device=self.device)
+        for stage in self.cache:
+            for leaf in stage.values():
+                leaf[:, dst] = leaf[:, src]
+        self.n_cow_copies += len(copies)
+
+    # -- steady-state decode tick -------------------------------------------
+    def _grow_pages(self, active: List[int]) -> None:
+        """Map the page covering each active slot's next write row.  The
+        growth reservation guarantees a free page; a failure here is an
+        accounting fault that ends the request (strict mode raises)."""
+        ps = self.sc.page_size
+        cow: List[Tuple[int, int]] = []
+        for i in active:
+            wr = int(self.positions[i])     # this tick's cache write row
+            j = wr // ps
+            if self.alloc.page_table[i, j] < 0:
+                if not self.alloc.alloc(i, j):
+                    self.iotlb.faults.append(FaultRecord(
+                        "capacity", i * self._slot_span + wr, 1, True))
+                    req = self.sched.slots[i].req
+                    req.failed = True
+                    self._finish(i)
+                    if self.sc.strict_iotlb:
+                        raise IotlbFault(
+                            "capacity", f"request {req.rid}: page pool "
+                            f"exhausted growing row {wr}")
+                    continue
+                self.alloc.growth_due[i] = max(
+                    0, int(self.alloc.growth_due[i]) - 1)
+            else:
+                # COW barrier: decode never writes a page another slot
+                # still references.
+                cp = self.alloc.privatize(i, j)
+                if cp is not None:
+                    cow.append(cp)
+            self.alloc.check_write(i, wr, 1, strict=self.sc.strict_iotlb)
+        self._apply_copies(cow)
+
+    def step(self):
+        """One engine tick after admission: advance unfinished prefill by
+        one chunk (unless this tick's admission wave already did), then one
+        decode dispatch for every prompt-complete slot."""
+        if self.sched.has_prefill_work() and not self._prefilled_since_step:
+            self._prefill_tick()
+        self._prefilled_since_step = False
+        runnable = self.sched.decode_slots()
+        self._grow_pages(runnable)
+        active = [i for i in self.sched.decode_slots() if i in set(runnable)]
+        if not active:
+            return
+        mask_np = np.zeros((self.sc.max_batch,), bool)
+        mask_np[active] = True
+        dev = self.device
+        toks = torch.from_numpy(self.last_token[:, None].copy()).to(dev)
+        pos_v = torch.from_numpy(
+            np.where(mask_np, self.positions, -1).astype(np.int32)).to(dev)
+        logits = self._dispatch(self._decode, toks, pos_v, self._pages_dev())
+        nxt = self._sample(logits)
+        lg_np = (logits.float().cpu().numpy() if self.sc.record_logits
+                 else None)
+        self.last_token = np.where(mask_np, nxt,
+                                   self.last_token).astype(np.int32)
+        self.positions = np.where(mask_np, self.positions + 1,
+                                  self.positions).astype(np.int32)
+        for i in active:
+            req = self.sched.slots[i].req
+            tok = int(nxt[i])
+            req.out_tokens.append(tok)
+            if lg_np is not None:
+                req.logits.append(lg_np[i].copy())
+            if tok == self.sc.eos_id or \
+                    len(req.out_tokens) >= self.sc.max_new_tokens:
+                self._finish(i)
+
+    # -- session API ---------------------------------------------------------
+    def submit(self, req: Request) -> RequestHandle:
+        """Queue ``req`` for admission and return its handle at once.
+        Raises once the engine has been drained, and for a prompt longer
+        than ``slot_rows - max_new_tokens``: the reference serves those
+        as oversized contexts from a host tier, which this slice does not
+        have (ROADMAP queue 1 item 14)."""
+        if self._closed:
+            raise RuntimeError("ServingEngine is closed: submit() after "
+                               "drain() — construct a new engine")
+        limit = self.sc.slot_rows - self.sc.max_new_tokens
+        if len(req.prompt) > limit:
+            raise ValueError(
+                f"Request.prompt of request {req.rid} has {len(req.prompt)} "
+                f"tokens, more than slot_rows - max_new_tokens = {limit}; "
+                "oversized contexts come with ROADMAP queue 1 item 14")
+        if req.submit_tick is None:
+            req.submit_tick = self.tick_no
+        self.sched.submit(req)
+        return RequestHandle(self, req)
+
+    def tick(self) -> None:
+        """Advance the serving clock, admit pending requests into free
+        slots (at most one prefill wave), then one decode dispatch."""
+        self.tick_no += 1
+        self._admission_wave()
+        self.step()
+
+    def drain(self) -> List[Request]:
+        """Serve every outstanding submission, then CLOSE the engine.
+        Returns the requests finished during this call, in order."""
+        start = len(self.completed)
+        while self.sched.has_work():
+            self.tick()
+        self._closed = True
+        return self.completed[start:]
+
+    def run(self, requests: List[Request]) -> List[Request]:
+        """Submit ``requests`` and tick until idle (the engine stays
+        open).  Returns the requests finished during this call."""
+        start = len(self.completed)
+        for req in requests:
+            self.submit(req)
+        while self.sched.has_work():
+            self.tick()
+        return self.completed[start:]

@@ -1,0 +1,66 @@
+"""Weight bridge between the JAX parameter tree and the port.
+
+:func:`from_jax_numpy` takes the tree ``repro.models.init_params`` returns,
+already turned into numpy arrays by the caller (``jax.tree.map(np.asarray,
+params)``), and builds the port's :class:`~repro_torch.models.model.
+Transformer`.  The reference stacks each scan stage's leaves on a leading
+``layers`` axis; the bridge unstacks them into one block per layer.
+:func:`to_jax_numpy` is the inverse, so a round trip is bit-exact.
+
+Neither function imports JAX.  bfloat16 leaves travel as their 16-bit
+patterns (numpy has no bfloat16 of its own); on the way back they come out
+as ``ml_dtypes.bfloat16``, the type JAX hands out.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import require_device
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.model import Transformer, _n_layers
+
+
+def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.array(a)                 # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def from_jax_numpy(cfg: ArchConfig, tree: dict, device="cuda") -> Transformer:
+    """The port's parameters from a numpy copy of the JAX tree."""
+    dev = require_device(device)
+    n = _n_layers(cfg)
+    stage = tree["stages"][0]
+    blocks = [{part: {k: _to_tensor(v[i], dev) for k, v in leaves.items()}
+               for part, leaves in stage.items()} for i in range(n)]
+    return Transformer(cfg, {
+        "embed": _to_tensor(tree["embed"], dev),
+        "blocks": blocks,
+        "final_norm": {k: _to_tensor(v, dev)
+                       for k, v in tree["final_norm"].items()},
+        "lm_head": _to_tensor(tree["lm_head"], dev),
+    })
+
+
+def to_jax_numpy(cfg: ArchConfig, params: Transformer) -> dict:
+    """The inverse of :func:`from_jax_numpy`: the JAX tree layout, with
+    each block leaf restacked on the leading ``layers`` axis."""
+    t = params.tree()
+    blocks = t["blocks"]
+    stage = {part: {k: np.stack([_to_numpy(b[part][k]) for b in blocks])
+                    for k in blocks[0][part]} for part in blocks[0]}
+    return {"embed": _to_numpy(t["embed"]), "stages": [stage],
+            "final_norm": {k: _to_numpy(v)
+                           for k, v in t["final_norm"].items()},
+            "lm_head": _to_numpy(t["lm_head"])}

@@ -1,0 +1,124 @@
+"""Rules the port keeps: no JAX, no code of the JAX package, no silent CPU
+fallback, and visible rejection of what this slice does not serve."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch import serve as launcher
+from repro_torch.models.model import init_paged_cache, init_params
+from repro_torch.serve import Request, ServeConfig, ServingEngine
+from repro_torch.weights import from_jax_numpy
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    code = (
+        "import importlib, pkgutil, sys, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__,\n"
+        "                               'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro',"
+        " 'jaxlib')]\n"
+        "print(len([m for m in sys.modules if m.startswith('repro_torch')]),"
+        " bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(" ", 1)
+    assert int(n) > 15 and bad.strip() == "[]", out.stdout
+
+
+def test_no_source_file_imports_jax_or_repro():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                     re.M)
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    hits = [str(f) for f in files if pat.search(f.read_text())]
+    assert not hits, hits
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_engine_default_device_raises_without_a_card(no_card):
+    cfg = reduce_config(get_config("qwen2.5-3b"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        ServingEngine(cfg, params, ServeConfig())
+
+
+@pytest.mark.parametrize("entry", ["init_params", "init_paged_cache",
+                                   "from_jax_numpy", "launcher"])
+def test_entry_points_default_to_cuda_and_raise_without_it(no_card, entry):
+    cfg = reduce_config(get_config("stablelm-3b"))
+    calls = {
+        "init_params": lambda: init_params(cfg),
+        "init_paged_cache": lambda: init_paged_cache(cfg, 4, 16),
+        "from_jax_numpy": lambda: from_jax_numpy(cfg, {}),
+        "launcher": lambda: launcher.main(["--arch", "stablelm-3b",
+                                           "--reduce"]),
+    }
+    with pytest.raises(RuntimeError, match="is_available"):
+        calls[entry]()
+
+
+def test_kernel_wrapper_has_no_fallback_off_the_cpu():
+    q = torch.empty(1, 4, 2, 32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("temperature", 0.7), ("kv_format", "int8"), ("paged", False),
+    ("host_pool_pages", 8), ("spec_draft", "self"), ("decode_sharing", True),
+    ("spill_dir", "/tmp/spill"), ("reserve_decode_pages", False)])
+def test_serve_config_rejects_unserved_knobs(field, value):
+    with pytest.raises(ValueError,
+                       match=rf"ServeConfig\.{field} .*ROADMAP queue 1 item"):
+        ServeConfig(**{field: value})
+
+
+def test_oversized_prompt_is_rejected_visibly():
+    cfg = reduce_config(get_config("qwen2.5-3b"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = ServingEngine(cfg, params, ServeConfig(max_prompt=8, max_seq=24,
+                                                 max_new_tokens=4),
+                        device="cpu")
+    with pytest.raises(ValueError, match=r"Request\.prompt .*ROADMAP"):
+        eng.submit(Request(0, list(range(21))))
+    eng.submit(Request(1, list(range(20))))     # at the limit: served
+    assert [len(r.out_tokens) for r in eng.drain()] == [4]
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120, cwd=ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, str(alone)], capture_output=True,
+                         text=True, timeout=120, cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

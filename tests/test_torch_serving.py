@@ -1,0 +1,122 @@
+"""The port's serving engine against the JAX engine, on the CPU.
+
+One engine of each package serves the same requests on the same bridged
+float32 weights with ``record_logits=True``: prompts longer than the
+prefill chunk (the resumed path), two prompts sharing a whole-page prefix
+that is not page-aligned (prefix sharing plus a copy-on-write page), and
+more requests than slots.  Tokens must be equal, per-token logits within
+``atol=1e-5``, and the engines' counters and TTFT ticks equal.
+"""
+import contextlib
+import io
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import ArchConfig as JaxCfg
+from repro.models import init_params as jax_init_params
+from repro.serve import Request as JaxRequest
+from repro.serve import ServeConfig as JaxServeConfig
+from repro.serve import ServingEngine as JaxEngine
+from repro_torch.launch import serve as launcher
+from repro_torch.models.config import ArchConfig
+from repro_torch.serve import Request, ServeConfig, ServingEngine
+from repro_torch.weights import from_jax_numpy
+
+DENSE = dict(name="cb", family="dense", n_layers=2, d_model=64, n_heads=4,
+             n_kv_heads=2, d_ff=128, vocab_size=100, decode_margin=32)
+SERVE = dict(max_batch=3, max_prompt=8, max_new_tokens=6, page_size=4,
+             max_seq=40, record_logits=True)
+COUNTERS = ["n_cow_copies", "n_shared_admissions", "n_preemptions",
+            "peak_active", "tick_no"]
+
+
+def _prompts():
+    rng = np.random.RandomState(1)
+    base = [int(t) for t in rng.randint(0, 100, 18)]
+    other = [[int(t) for t in rng.randint(0, 100, n)]
+             for n in (5, 3, 11, 19, 2, 14)]
+    # slot order: the sharer (base + [9]) arrives once a short request
+    # has freed a slot, while base + [7, 8] is resident and prefilled
+    return [base + [7, 8], other[4], other[1], base + [9], other[0],
+            other[2], other[3], other[5]]
+
+
+@pytest.fixture(scope="module")
+def engines():
+    jc = JaxCfg(**DENSE, dtype=jnp.float32)
+    tc = ArchConfig(**DENSE, dtype=torch.float32)
+    jp = jax_init_params(jc, jax.random.PRNGKey(0))
+    tp = from_jax_numpy(tc, jax.tree.map(np.asarray, jp), device="cpu")
+    prompts = _prompts()
+    je = JaxEngine(jc, jp, JaxServeConfig(**SERVE))
+    jout = je.run([JaxRequest(i, p) for i, p in enumerate(prompts)])
+    te = ServingEngine(tc, tp, ServeConfig(**SERVE), device="cpu")
+    handles = [te.submit(Request(i, p)) for i, p in enumerate(prompts)]
+    tdone = te.drain()
+    return {"jax": je, "port": te, "prompts": prompts,
+            "jout": {r.rid: r for r in jout},
+            "tout": {r.rid: r for r in tdone}, "handles": handles}
+
+
+def test_every_request_completes(engines):
+    assert sorted(engines["tout"]) == list(range(len(engines["prompts"])))
+    for h in engines["handles"]:
+        assert h.status == "done"
+        assert len(h.tokens_so_far) == SERVE["max_new_tokens"]
+
+
+def test_tokens_equal_reference(engines):
+    for rid, ref in engines["jout"].items():
+        assert engines["tout"][rid].out_tokens == ref.out_tokens, rid
+
+
+def test_completion_order_equals_reference(engines):
+    assert [r.rid for r in engines["jax"].completed] == \
+        [r.rid for r in engines["port"].completed]
+
+
+def test_logits_match_reference(engines):
+    for rid, ref in engines["jout"].items():
+        got = engines["tout"][rid].logits
+        assert len(got) == len(ref.logits)
+        for a, b in zip(got, ref.logits):
+            np.testing.assert_allclose(a, np.asarray(b), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("counter", COUNTERS)
+def test_counters_equal_reference(engines, counter):
+    assert getattr(engines["port"], counter) == \
+        getattr(engines["jax"], counter)
+
+
+def test_ttft_ticks_equal_reference(engines):
+    for rid, ref in engines["jout"].items():
+        assert engines["tout"][rid].ttft_ticks == ref.ttft_ticks, rid
+
+
+def test_resumed_sharing_and_cow_paths_exercised(engines):
+    eng = engines["port"]
+    assert max(len(p) for p in engines["prompts"]) > SERVE["max_prompt"]
+    assert eng.n_shared_admissions >= 1 and eng.n_cow_copies >= 1
+    assert eng.pages_in_use() == 0              # every page came back
+    assert eng.stats()["kernel_launches"] == 0  # CPU: plain versions only
+
+
+def test_submit_after_drain_raises(engines):
+    with pytest.raises(RuntimeError, match="closed"):
+        engines["port"].submit(Request(99, [1, 2, 3]))
+
+
+def test_launcher_twin_runs_on_cpu():
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launcher.main(["--arch", "stablelm-3b", "--reduce", "--device", "cpu",
+                       "--requests", "3", "--max-batch", "2",
+                       "--max-new-tokens", "4"])
+    lines = out.getvalue().splitlines()
+    assert sum(ln.startswith("req ") and "[done" in ln for ln in lines) == 3
+    assert lines[-1].startswith("device cpu:")
