@@ -14,8 +14,9 @@ smoke:
 	$(PY) -m pytest -x -q -k "not distributed"
 
 # the PyTorch port's parity tests (CPU): the port against the JAX package
-# on the same inputs.  Its CUDA kernels are checked on a GPU by
-# `python3 chip_smoke.py`.
+# on the same inputs, the packed-weight ones (test_torch_quant.py,
+# test_torch_mpq_matmul.py) included.  Its CUDA kernels are checked on a
+# GPU by `python3 chip_smoke.py`.
 test-torch:
 	$(PY) -m pytest -q tests/test_torch_*.py
 

@@ -1,1 +1,2 @@
-"""Host-side core of the port (the software IOTLB)."""
+"""Host-side core of the port: the software IOTLB, and the quantization
+and sub-byte packing formats of the packed-weight path."""

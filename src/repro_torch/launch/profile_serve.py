@@ -11,8 +11,10 @@ For each window it prints one JSON line: host wall ms per tick, device
 busy ms per tick (the profiler's summed device time of kernels and
 copies), the device's idle share, host op and stream-sync counts per
 tick, and the device ops that took the most time.  Needs one card.
+``--quant`` packs the weights first (as the serving launcher does).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --ticks 8
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --quant w4a16
 """
 from __future__ import annotations
 
@@ -27,8 +29,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
+from repro_torch.launch.serve import QUANT_CHOICES, parse_quant
 from repro_torch.models.common import require_device
-from repro_torch.models.model import init_params
+from repro_torch.models.model import init_params, quantize_for_serving
 from repro_torch.serve import Request, ServeConfig, ServingEngine
 
 
@@ -79,6 +82,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--ticks", type=int, default=8)
+    ap.add_argument("--quant", default="none", choices=QUANT_CHOICES)
     args = ap.parse_args(argv)
     dev = require_device("cuda")
     card = subprocess.run(
@@ -88,6 +92,9 @@ def main(argv=None):
     cfg = get_config(args.arch)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          device=dev)
+    if args.quant != "none":
+        cfg = cfg.with_(quant=parse_quant(args.quant))
+        params, _ = quantize_for_serving(cfg, params)
     sc = ServeConfig(max_batch=8, max_prompt=256, page_size=16,
                      max_seq=2048, max_new_tokens=4 * args.ticks + 8)
     rng = np.random.RandomState(0)
@@ -97,7 +104,8 @@ def main(argv=None):
         for i in range(sc.max_batch):
             eng.submit(Request(i, [int(t) for t in
                                    rng.randint(0, cfg.vocab_size, 700)]))
-        out = {"card": card, "arch": cfg.name, "profiled": profiled}
+        out = {"card": card, "arch": cfg.name, "quant": args.quant,
+               "profiled": profiled}
         out["prefill"] = _window(eng, 3, profiled)      # 3 chunks of 256
         if eng.sched.has_prefill_work():
             raise RuntimeError("prefill did not finish in 3 ticks")

@@ -5,12 +5,16 @@ through ``submit() -> RequestHandle``, streams the first high-priority
 request's tokens as decode ticks emit them, drains the rest, and reports
 per-request TTFT (in engine ticks), the deadline ledger and the engine's
 kernel-launch counts.  Weights are random, from ``init_params`` with a
-seeded ``torch.Generator``.
+seeded ``torch.Generator``; ``--quant`` packs them with
+``quantize_for_serving`` (w8a8 / w4a8: the integer matmul kernel;
+w4a16 / w2a16: the weight-only one).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --device cuda --requests 6
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \
       --reduce --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+      --quant w4a16
 """
 from __future__ import annotations
 
@@ -20,17 +24,31 @@ import numpy as np
 import torch
 
 from repro_torch.configs import all_archs, get_config, reduce_config
+from repro_torch.core.quant import QuantConfig
 from repro_torch.models.common import require_device
-from repro_torch.models.model import init_params
+from repro_torch.models.model import init_params, quantize_for_serving
 from repro_torch.serve import Request, ServeConfig, ServingEngine
 
 TTFT_DEADLINE = 8       # engine ticks, on the high-priority half
+QUANT_CHOICES = ["none", "w8a8", "w4a16", "w2a16", "w4a8"]
+
+
+def parse_quant(name: str):
+    """``--quant`` as the reference's launcher reads it: ``w{W}a16`` is
+    weight-only, ``w{W}a{A}`` integer; 'none' -> None."""
+    if name == "none":
+        return None
+    w = int(name[1])
+    mode = "wo" if name.endswith("a16") else "int"
+    a = 8 if mode == "wo" else int(name.split("a")[1])
+    return QuantConfig(mode=mode, a_bits=a, w_bits=w)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=all_archs())
     ap.add_argument("--reduce", action="store_true")
+    ap.add_argument("--quant", default="none", choices=QUANT_CHOICES)
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=2)
@@ -45,6 +63,10 @@ def main(argv=None):
         cfg = reduce_config(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(cfg, gen, device=dev)
+    if args.quant != "none":
+        cfg = cfg.with_(quant=parse_quant(args.quant))
+        params, n = quantize_for_serving(cfg, params)
+        print(f"serving with {args.quant}: packed {n} tensors")
 
     rng = np.random.RandomState(1)
     reqs = []

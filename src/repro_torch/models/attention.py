@@ -38,10 +38,10 @@ PARTIALS_BYTES_BUDGET = 64 << 20
 def attn_specs(cfg) -> dict:
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     specs = {
-        "wq": ParamSpec((d, h * dh)),
-        "wk": ParamSpec((d, kv * dh)),
-        "wv": ParamSpec((d, kv * dh)),
-        "wo": ParamSpec((h * dh, d)),
+        "wq": ParamSpec((d, h * dh), quantize=True),
+        "wk": ParamSpec((d, kv * dh), quantize=True),
+        "wv": ParamSpec((d, kv * dh), quantize=True),
+        "wo": ParamSpec((h * dh, d), quantize=True),
     }
     if cfg.qkv_bias:
         specs["bq"] = ParamSpec((h * dh,), init="zeros")
@@ -117,9 +117,9 @@ def apply_attention(p, x: torch.Tensor, cfg, *, cache: dict, mode: str,
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dev = x.device
-    q = dense(x, p["wq"], p.get("bq")).reshape(b, s, h, dh)
-    k = dense(x, p["wk"], p.get("bk")).reshape(b, s, kv, dh)
-    v = dense(x, p["wv"], p.get("bv")).reshape(b, s, kv, dh)
+    q = dense(x, p["wq"], cfg.quant, p.get("bq")).reshape(b, s, h, dh)
+    k = dense(x, p["wk"], cfg.quant, p.get("bk")).reshape(b, s, kv, dh)
+    v = dense(x, p["wv"], cfg.quant, p.get("bv")).reshape(b, s, kv, dh)
     ar = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
     if mode == "chunk":
         len_b = chunk_lengths(pos, b, dev)
@@ -152,5 +152,5 @@ def apply_attention(p, x: torch.Tensor, cfg, *, cache: dict, mode: str,
     else:
         t = pos_b[:, None]
         o = _paged_attend(q, k, v, cache, pages, t, t >= 0, t, pos_b + 1)
-    y = dense(o.reshape(b, s, h * dh), p["wo"])
+    y = dense(o.reshape(b, s, h * dh), p["wo"], cfg.quant)
     return y, cache

@@ -2,9 +2,10 @@
 
 The counterpart of ``repro.models.blocks`` for the dense GQA family:
 pre-norm attention, then a pre-norm SwiGLU (or GELU) MLP.  A block is an
-``nn.Module`` holding its weights as frozen parameters in the reference's
-tree (``ln1``, ``attn``, ``ln2``, ``ffn``), so the weight bridge maps
-leaves one to one.
+``nn.Module`` holding its weights in the reference's tree (``ln1``,
+``attn``, ``ln2``, ``ffn``), so the weight bridge maps leaves one to one:
+raw weights as frozen parameters, and the packed weights of a quantized
+model as :class:`~repro_torch.kernels.ops.PackedWeight` submodules.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from repro_torch.kernels.ops import PackedWeight
 from repro_torch.models.attention import apply_attention, attn_specs
 from repro_torch.models.common import ParamSpec, dense, layer_norm, rms_norm
 
@@ -34,21 +36,23 @@ def apply_norm(p, x, cfg):
 def mlp_specs(cfg) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.mlp_act == "gelu":
-        return {"w_up": ParamSpec((d, f)), "w_down": ParamSpec((f, d))}
-    return {"w_gate": ParamSpec((d, f)), "w_up": ParamSpec((d, f)),
-            "w_down": ParamSpec((f, d))}
+        return {"w_up": ParamSpec((d, f), quantize=True),
+                "w_down": ParamSpec((f, d), quantize=True)}
+    return {"w_gate": ParamSpec((d, f), quantize=True),
+            "w_up": ParamSpec((d, f), quantize=True),
+            "w_down": ParamSpec((f, d), quantize=True)}
 
 
 def apply_mlp(p, x, cfg):
     if cfg.mlp_act == "gelu":
-        h = dense(x, p["w_up"])
+        h = dense(x, p["w_up"], cfg.quant)
         h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
-        return dense(h, p["w_down"])
-    g = dense(x, p["w_gate"])
-    u = dense(x, p["w_up"])
+        return dense(h, p["w_down"], cfg.quant)
+    g = dense(x, p["w_gate"], cfg.quant)
+    u = dense(x, p["w_up"], cfg.quant)
     # SiLU in float32, cast to the activation type, then times u.
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return dense(h, p["w_down"])
+    return dense(h, p["w_down"], cfg.quant)
 
 
 def attn_mlp_specs(cfg) -> dict:
@@ -56,9 +60,36 @@ def attn_mlp_specs(cfg) -> dict:
             "ln2": norm_specs(cfg), "ffn": mlp_specs(cfg)}
 
 
-def _frozen(tree: Dict[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tree.items()})
+class Leaves(nn.Module):
+    """One part of a block's tree (``ln1``, ``attn``, ...), read like the
+    dict it mirrors (``p["wq"]``, ``p.get("bq")``): tensors as frozen
+    parameters, packed weights as submodules."""
+
+    def __init__(self, tree: Dict[str, object]):
+        super().__init__()
+        self._names = tuple(tree)
+        for k, v in tree.items():
+            if isinstance(v, PackedWeight):
+                self.add_module(k, v)
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, k: str):
+        if k not in self._names:
+            raise KeyError(k)
+        return getattr(self, k)
+
+    def __contains__(self, k: str) -> bool:
+        return k in self._names
+
+    def get(self, k: str, default=None):
+        return self[k] if k in self._names else default
+
+    def tree(self) -> Dict[str, object]:
+        """The leaves: tensors, or PackedWeight modules as they are."""
+        return {k: v if isinstance(v, PackedWeight) else v.data
+                for k, v in ((k, self[k]) for k in self._names)}
 
 
 class AttnMlpBlock(nn.Module):
@@ -68,13 +99,13 @@ class AttnMlpBlock(nn.Module):
     def __init__(self, cfg, leaves: Dict[str, Dict[str, torch.Tensor]]):
         super().__init__()
         self.cfg = cfg
-        self.ln1 = _frozen(leaves["ln1"])
-        self.attn = _frozen(leaves["attn"])
-        self.ln2 = _frozen(leaves["ln2"])
-        self.ffn = _frozen(leaves["ffn"])
+        self.ln1 = Leaves(leaves["ln1"])
+        self.attn = Leaves(leaves["attn"])
+        self.ln2 = Leaves(leaves["ln2"])
+        self.ffn = Leaves(leaves["ffn"])
 
-    def tree(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        return {name: {k: v.data for k, v in getattr(self, name).items()}
+    def tree(self) -> Dict[str, Dict[str, object]]:
+        return {name: getattr(self, name).tree()
                 for name in ("ln1", "attn", "ln2", "ffn")}
 
     def forward(self, x, cache, mode, pos, pages, offset):

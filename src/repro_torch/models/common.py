@@ -8,8 +8,10 @@ with std 1, zeros for biases, ones for norm weights) but not its bits:
 ``jax.random`` and torch generators give different numbers from one seed,
 so parity tests bridge the JAX weights instead (:mod:`repro_torch.weights`).
 
-Norms, RoPE and the SiLU gate are computed in float32 and cast back, as
-the reference does.  ``paged_scatter`` writes the pool IN PLACE (JAX
+``dense`` honours the quantization format: a :class:`~repro_torch.kernels.
+ops.PackedWeight` (made by ``quantize_for_serving``) runs the packed matmul
+kernels.  Norms, RoPE and the SiLU gate are computed in float32 and cast
+back, as the reference does.  ``paged_scatter`` writes the pool IN PLACE (JAX
 returns a new array; here the pool is a tensor the engine owns).
 """
 from __future__ import annotations
@@ -18,6 +20,9 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.core.quant import QuantConfig
+from repro_torch.kernels.ops import PackedWeight, quantized_matmul
 
 
 def require_device(device) -> torch.device:
@@ -39,6 +44,7 @@ class ParamSpec:
     init: str = "normal"           # normal | zeros | ones | embed
     scale: Optional[float] = None  # stddev override (default 1/sqrt(fan_in))
     dtype: Optional[torch.dtype] = None  # override model dtype (norms: f32)
+    quantize: bool = False         # eligible for sub-byte packing (serving)
 
     def std(self) -> float:
         if self.init == "embed":
@@ -65,10 +71,27 @@ def materialize(spec: ParamSpec, generator: Optional[torch.Generator],
 # Shared layers.
 # ---------------------------------------------------------------------------
 
-def dense(x: torch.Tensor, w: torch.Tensor,
+def dense(x: torch.Tensor, w, quant: Optional[QuantConfig] = None,
           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y = x @ w (+ bias) with a raw (K, N) weight."""
-    y = x @ w
+    """y = x @ w (+ bias), honouring the quantization format.
+
+    ``w`` is a raw (K, N) weight or a :class:`PackedWeight`, which needs an
+    int/wo ``quant`` and runs :func:`quantized_matmul`.  A raw weight
+    under an int/wo format is the reference's fake-quant emulation of the
+    deployment numerics; it comes with QAT (ROADMAP queue 1 item 16) and
+    raises here: pack the weights with ``quantize_for_serving``."""
+    if isinstance(w, PackedWeight):
+        if quant is None or quant.mode not in ("int", "wo"):
+            raise ValueError(f"dense: a PackedWeight needs an int/wo "
+                             f"QuantConfig, got {quant}")
+        y = quantized_matmul(x, w, quant)
+    elif quant is not None and quant.mode in ("int", "wo"):
+        raise NotImplementedError(
+            f"dense: a raw weight under quant mode {quant.mode!r} is the "
+            "fake-quant emulation, not in the port yet (ROADMAP queue 1 "
+            "item 16); pack the weights with quantize_for_serving")
+    else:
+        y = x @ w
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y

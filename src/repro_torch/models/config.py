@@ -10,9 +10,11 @@ recurrent fields are kept so that the config files and
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.core.quant import QuantConfig
 
 
 def _round_up(x: int, m: int) -> int:
@@ -64,6 +66,9 @@ class ArchConfig:
     input_mode: str = "tokens"       # tokens | embeds (audio/vlm stubs)
     sub_quadratic: bool = False      # eligible for long_500k
 
+    # packed-weight format of every quantize-eligible dense
+    # (models.model.quantize_for_serving); None = the model's dtype
+    quant: Optional[QuantConfig] = None
     dtype: torch.dtype = torch.bfloat16
     decode_margin: int = 4096        # extra KV capacity beyond prompt
 

@@ -15,6 +15,12 @@ pools in place.
                   right-padded chunk (0 = inactive slot); with ``offset``
                   the chunk is RESUMED at rows [offset, offset + len)
   mode='decode' — one token per slot at row ``pos`` (B,) (-1 = inactive)
+
+:func:`quantize_for_serving` packs every quantize-eligible weight (the
+attention and MLP projections and ``lm_head``) into a
+:class:`~repro_torch.kernels.ops.PackedWeight` in the format of
+``cfg.quant``; ``forward`` then runs each of those ``dense`` through the
+packed matmul kernels.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.kernels.ops import PackedWeight, prepare_weight
 from repro_torch.models.attention import paged_kv_cache_spec
 from repro_torch.models.blocks import (AttnMlpBlock, apply_norm,
                                        attn_mlp_specs, norm_specs)
@@ -49,7 +56,7 @@ def param_specs(cfg: ArchConfig) -> dict:
         "embed": ParamSpec((vp, d), init="embed", scale=0.02),
         "blocks": [attn_mlp_specs(cfg) for _ in range(_n_layers(cfg))],
         "final_norm": norm_specs(cfg),
-        "lm_head": ParamSpec((d, vp), scale=0.02),
+        "lm_head": ParamSpec((d, vp), scale=0.02, quantize=True),
     }
 
 
@@ -63,7 +70,8 @@ def cache_specs(cfg: ArchConfig, num_pages: int, page_size: int) -> list:
 
 class Transformer(nn.Module):
     """The model's weights: ``embed``, ``blocks`` (ModuleList),
-    ``final_norm`` and ``lm_head``, all frozen."""
+    ``final_norm`` and ``lm_head``, all frozen.  ``lm_head`` is a
+    :class:`PackedWeight` once the model is packed."""
 
     def __init__(self, cfg: ArchConfig, leaves: dict):
         super().__init__()
@@ -74,7 +82,9 @@ class Transformer(nn.Module):
         self.final_norm = nn.ParameterDict(
             {k: nn.Parameter(v, requires_grad=False)
              for k, v in leaves["final_norm"].items()})
-        self.lm_head = nn.Parameter(leaves["lm_head"], requires_grad=False)
+        head = leaves["lm_head"]
+        self.lm_head = (head if isinstance(head, PackedWeight) else
+                        nn.Parameter(head, requires_grad=False))
 
     def tree(self) -> dict:
         """The weights as the nested dict ``param_specs`` declares."""
@@ -82,7 +92,9 @@ class Transformer(nn.Module):
                 "blocks": [b.tree() for b in self.blocks],
                 "final_norm": {k: v.data for k, v in
                                self.final_norm.items()},
-                "lm_head": self.lm_head.data}
+                "lm_head": (self.lm_head
+                            if isinstance(self.lm_head, PackedWeight)
+                            else self.lm_head.data)}
 
 
 def forward(params: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
@@ -100,7 +112,7 @@ def forward(params: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
         layer = {"k": stage["k"][i], "v": stage["v"][i]}
         x, _ = block(x, layer, mode, pos, pages, offset)
     x = apply_norm(params.final_norm, x, cfg)
-    logits = dense(x, params.lm_head)
+    logits = dense(x, params.lm_head, cfg.quant)
     return logits, cache, 0.0
 
 
@@ -133,3 +145,39 @@ def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int, *,
     dev = require_device(device)
     return _materialize_tree(cache_specs(cfg, num_pages, page_size), None,
                              cfg.dtype, dev)
+
+
+def _map_specs(spec, leaf, fn):
+    """``fn(spec, leaf)`` on every ParamSpec leaf of the spec tree."""
+    if isinstance(spec, ParamSpec):
+        return fn(spec, leaf)
+    if isinstance(spec, dict):
+        return {k: _map_specs(spec[k], leaf[k], fn) for k in spec}
+    return [_map_specs(s, v, fn) for s, v in zip(spec, leaf)]
+
+
+def _n_quantizable(spec) -> int:
+    if isinstance(spec, ParamSpec):
+        return int(spec.quantize)
+    vals = spec.values() if isinstance(spec, dict) else spec
+    return sum(_n_quantizable(v) for v in vals)
+
+
+def quantize_for_serving(cfg: ArchConfig,
+                         params: Transformer) -> Tuple[Transformer, int]:
+    """Pack every quantize-eligible weight (``ParamSpec.quantize``) into
+    a :class:`PackedWeight` in the format of ``cfg.quant``, ``lm_head``
+    included.  Returns (the packed model, the count the reference's
+    ``quantize_for_serving`` returns for this config): the reference
+    stacks a scan stage's layers, so each eligible block weight counts
+    once however many layers the stage has."""
+    if cfg.quant is None or cfg.quant.mode not in ("int", "wo"):
+        raise ValueError("quantize_for_serving needs an int/wo QuantConfig "
+                         f"on cfg.quant, got {cfg.quant}")
+    specs = param_specs(cfg)
+    packed = _map_specs(
+        specs, params.tree(),
+        lambda s, v: prepare_weight(v, cfg.quant) if s.quantize else v)
+    blocks = specs.pop("blocks")
+    n = _n_quantizable(specs) + (_n_quantizable(blocks[0]) if blocks else 0)
+    return Transformer(cfg, packed), n

@@ -22,7 +22,9 @@ only on its own offset.
 
 Every attention dispatch runs a CUDA kernel on the card: the flash
 forward for a fresh wave, the paged flash-decode partials for a resumed
-wave and for decode.  ``stats()`` reports the kernel launches of the last
+wave and for decode.  A model packed by ``quantize_for_serving`` (the
+format on ``cfg.quant``) also runs every ``dense`` through the packed
+matmul kernels.  ``stats()`` reports the kernel launches of the last
 dispatch and in total.
 
 Not in this slice (ServeConfig rejects them): swap preemption and
@@ -38,6 +40,7 @@ import torch
 
 from repro_torch.core.iotlb import FaultRecord, IotlbFault
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mpq_matmul as _mpq
 from repro_torch.kernels import paged_flash_decode as _paged
 from repro_torch.models.common import require_device
 from repro_torch.models.config import ArchConfig
@@ -52,7 +55,8 @@ _DEFER = "defer"                    # admission verdict: retry after frees
 
 
 def _kernel_launches() -> int:
-    return _flash.launches + _paged.launches
+    return (_flash.launches + _paged.launches + _mpq.launches
+            + _mpq.reduce_launches)
 
 
 class RequestHandle:

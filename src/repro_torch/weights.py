@@ -7,6 +7,13 @@ Transformer`.  The reference stacks each scan stage's leaves on a leading
 ``layers`` axis; the bridge unstacks them into one block per layer.
 :func:`to_jax_numpy` is the inverse, so a round trip is bit-exact.
 
+A packed model (the reference's ``quantize_for_serving`` tree) crosses
+too.  Each ``PackedWeight`` leaf travels as a plain dict ``{"packed",
+"scale", "k", "n", "w_bits"}`` that the caller builds from the JAX
+object; in a scan stage ``packed`` is stacked (L, K // fw, N) and
+``scale`` (L, N), and the bridge unstacks them into one
+:class:`~repro_torch.kernels.ops.PackedWeight` per layer.
+
 Neither function imports JAX.  bfloat16 leaves travel as their 16-bit
 patterns (numpy has no bfloat16 of its own); on the way back they come out
 as ``ml_dtypes.bfloat16``, the type JAX hands out.
@@ -16,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.ops import PackedWeight
 from repro_torch.models.common import require_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import Transformer, _n_layers
@@ -37,19 +45,43 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _leaf(v, dev, i=None):
+    """A tensor, or a PackedWeight from a packed-leaf dict; ``i`` picks
+    layer ``i`` of a scan-stacked leaf."""
+    pick = (lambda a: a) if i is None else (lambda a: a[i])
+    if isinstance(v, dict):
+        return PackedWeight(_to_tensor(pick(v["packed"]), dev),
+                            _to_tensor(pick(v["scale"]), dev), v["k"],
+                            v["n"], v["w_bits"])
+    return _to_tensor(pick(v), dev)
+
+
+def _packed_dict(pws) -> dict:
+    """The packed-leaf dict of one PackedWeight, or of a stage's layers
+    (stacked on a leading axis)."""
+    one = isinstance(pws, PackedWeight)
+    pws = [pws] if one else pws
+    packed = [_to_numpy(p.packed) for p in pws]
+    scale = [_to_numpy(p.scale) for p in pws]
+    return {"packed": packed[0] if one else np.stack(packed),
+            "scale": scale[0] if one else np.stack(scale),
+            "k": pws[0].k, "n": pws[0].n, "w_bits": pws[0].w_bits}
+
+
 def from_jax_numpy(cfg: ArchConfig, tree: dict, device="cuda") -> Transformer:
-    """The port's parameters from a numpy copy of the JAX tree."""
+    """The port's parameters from a numpy copy of the JAX tree (raw, or
+    packed with packed-leaf dicts)."""
     dev = require_device(device)
     n = _n_layers(cfg)
     stage = tree["stages"][0]
-    blocks = [{part: {k: _to_tensor(v[i], dev) for k, v in leaves.items()}
+    blocks = [{part: {k: _leaf(v, dev, i) for k, v in leaves.items()}
                for part, leaves in stage.items()} for i in range(n)]
     return Transformer(cfg, {
         "embed": _to_tensor(tree["embed"], dev),
         "blocks": blocks,
         "final_norm": {k: _to_tensor(v, dev)
                        for k, v in tree["final_norm"].items()},
-        "lm_head": _to_tensor(tree["lm_head"], dev),
+        "lm_head": _leaf(tree["lm_head"], dev),
     })
 
 
@@ -58,9 +90,17 @@ def to_jax_numpy(cfg: ArchConfig, params: Transformer) -> dict:
     each block leaf restacked on the leading ``layers`` axis."""
     t = params.tree()
     blocks = t["blocks"]
-    stage = {part: {k: np.stack([_to_numpy(b[part][k]) for b in blocks])
-                    for k in blocks[0][part]} for part in blocks[0]}
+    def stacked(part, k):
+        layers = [b[part][k] for b in blocks]
+        if isinstance(layers[0], PackedWeight):
+            return _packed_dict(layers)
+        return np.stack([_to_numpy(v) for v in layers])
+
+    stage = {part: {k: stacked(part, k) for k in blocks[0][part]}
+             for part in blocks[0]}
+    head = t["lm_head"]
     return {"embed": _to_numpy(t["embed"]), "stages": [stage],
             "final_norm": {k: _to_numpy(v)
                            for k, v in t["final_norm"].items()},
-            "lm_head": _to_numpy(t["lm_head"])}
+            "lm_head": (_packed_dict(head) if isinstance(head, PackedWeight)
+                        else _to_numpy(head))}

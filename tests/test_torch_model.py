@@ -7,6 +7,12 @@ permuted page table from the same (zero) pools, on the test dense config
 and on reduced qwen2.5-3b and stablelm-3b in float32.  Logits at every
 valid position and the pools after each step must agree within
 ``atol=1e-5``.
+
+Packed weights: the port's ``quantize_for_serving`` must give the
+reference's packed bytes and scales bitwise, the packed tree must cross
+the bridge bit-exactly both ways, and the packed forward must match the
+reference's (oracle path, ``use_kernel=False``) under w4a16, w2a16, w8a8
+and w4a8.
 """
 import jax
 import jax.numpy as jnp
@@ -20,10 +26,15 @@ from repro.models import ArchConfig as JaxCfg
 from repro.models import forward as jax_forward
 from repro.models import init_paged_cache as jax_init_cache
 from repro.models import init_params as jax_init_params
+from repro.core.quant import QuantConfig as JaxQuant
+from repro.kernels.ops import PackedWeight as JaxPacked
+from repro.models.model import quantize_for_serving as jax_quantize
+from repro_torch.core.quant import QuantConfig
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.models.config import ArchConfig
+from repro_torch.kernels.ops import PackedWeight
 from repro_torch.models.model import (forward, init_paged_cache, init_params,
-                                      param_specs)
+                                      param_specs, quantize_for_serving)
 from repro_torch.weights import from_jax_numpy, to_jax_numpy
 
 ATOL = 1e-5
@@ -45,6 +56,42 @@ def _configs(name, f32=True):
 def _numpy_tree(jc, seed=0):
     params = jax_init_params(jc, jax.random.PRNGKey(seed))
     return jax.tree.map(np.asarray, params)
+
+
+# name -> (mode, a_bits, w_bits), as the launchers parse --quant
+QUANTS = {"w4a16": ("wo", 8, 4), "w2a16": ("wo", 8, 2),
+          "w8a8": ("int", 8, 8), "w4a8": ("int", 8, 4)}
+
+
+def _quant_pair(fmt):
+    mode, a, w = QUANTS[fmt]
+    return (JaxQuant(mode=mode, a_bits=a, w_bits=w, use_kernel=False),
+            QuantConfig(mode=mode, a_bits=a, w_bits=w))
+
+
+def _packed_numpy(tree):
+    """A numpy copy of a packed JAX tree, each PackedWeight as the
+    bridge's packed-leaf dict."""
+    def leaf(x):
+        if isinstance(x, JaxPacked):
+            return {"packed": np.asarray(x.packed),
+                    "scale": np.asarray(x.scale), "k": x.k, "n": x.n,
+                    "w_bits": x.w_bits}
+        return np.asarray(x)
+    return jax.tree.map(leaf, tree,
+                        is_leaf=lambda x: isinstance(x, JaxPacked))
+
+
+def _assert_trees_bitwise(want, got):
+    la, ta = jax.tree.flatten(want)
+    lb, tb = jax.tree.flatten(got)
+    assert ta == tb
+    for a, b in zip(la, lb):
+        if isinstance(a, int):
+            assert a == b
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
 
 
 # -- weight bridge ------------------------------------------------------------
@@ -95,10 +142,16 @@ def test_unported_block_program_raises():
 
 # -- forward parity: fresh chunk -> resumed chunk -> paged decode -----------
 
-def _run_both(name):
+def _run_both(name, fmt=None):
     jc, tc = _configs(name)
     tree = _numpy_tree(jc, seed=1)
-    jp = jax.tree.map(jnp.asarray, tree)
+    if fmt is None:
+        jp = jax.tree.map(jnp.asarray, tree)
+    else:
+        jq, tq = _quant_pair(fmt)
+        jc, tc = jc.with_(quant=jq), tc.with_(quant=tq)
+        jp, _ = jax_quantize(jc, jax.tree.map(jnp.asarray, tree))
+        tree = _packed_numpy(jp)
     tp = from_jax_numpy(tc, tree, device="cpu")
     b, s, n_pages, ps, p = 3, 8, 16, 4, 6
     rng = np.random.RandomState(2)
@@ -153,5 +206,74 @@ def test_forward_logits_match_reference(parity, step):
 @pytest.mark.parametrize("step", ["fresh", "resume", "decode"])
 def test_forward_pool_contents_match_reference(parity, step):
     _, _, want, got = parity[step]
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g, w, atol=ATOL, rtol=0)
+
+
+# -- packed weights -----------------------------------------------------------
+
+@pytest.mark.parametrize("fmt", sorted(QUANTS))
+@pytest.mark.parametrize("name", ["dense", "qwen2.5-3b"])
+def test_quantize_for_serving_bitwise_equals_reference(name, fmt):
+    jc, tc = _configs(name, f32=False)      # reduced qwen stays bf16
+    jq, tq = _quant_pair(fmt)
+    jc, tc = jc.with_(quant=jq), tc.with_(quant=tq)
+    tree = _numpy_tree(jc)
+    jpacked, jn = jax_quantize(jc, jax.tree.map(jnp.asarray, tree))
+    tpacked, tn = quantize_for_serving(
+        tc, from_jax_numpy(tc, tree, device="cpu"))
+    assert tn == jn == 8          # 7 stacked block weights + lm_head
+    n_pw = sum(isinstance(m, PackedWeight) for m in tpacked.modules())
+    assert n_pw == 7 * tc.n_layers + 1
+    _assert_trees_bitwise(_packed_numpy(jpacked), to_jax_numpy(tc, tpacked))
+
+
+@pytest.mark.parametrize("fmt", ["w4a16", "w8a8"])
+def test_packed_bridge_round_trip_bit_exact(fmt):
+    jc, tc = _configs("qwen2.5-3b", f32=False)
+    jq, tq = _quant_pair(fmt)
+    jc, tc = jc.with_(quant=jq), tc.with_(quant=tq)
+    jpacked, _ = jax_quantize(jc, jax.tree.map(jnp.asarray, _numpy_tree(jc)))
+    tree = _packed_numpy(jpacked)
+    model = from_jax_numpy(tc, tree, device="cpu")
+    assert isinstance(model.lm_head, PackedWeight)
+    assert isinstance(model.blocks[1].ffn["w_down"], PackedWeight)
+    _assert_trees_bitwise(tree, to_jax_numpy(tc, model))
+
+
+def test_raw_weight_under_a_packed_format_raises():
+    jc, tc = _configs("dense")
+    tc = tc.with_(quant=QuantConfig(mode="wo", w_bits=4))
+    tp = from_jax_numpy(tc, _numpy_tree(jc), device="cpu")
+    cache = init_paged_cache(tc, 4, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
+        forward(tp, torch.zeros((1, 4), dtype=torch.int32), tc, cache=cache,
+                mode="chunk", pos=torch.tensor([4], dtype=torch.int32),
+                pages=torch.zeros((1, 1), dtype=torch.int32))
+
+
+@pytest.fixture(scope="module", params=[
+    f"{n}-{f}" for n in ("dense", "qwen2.5-3b") for f in sorted(QUANTS)])
+def qparity(request):
+    name, fmt = request.param.rsplit("-", 1)
+    return _run_both(name, fmt)
+
+
+# Integer formats quantize each activation row on the fly, and XLA's jit
+# computes the row scale one float32 ulp away from the port (see
+# test_torch_mpq_matmul.py), which could move a value across a rounding
+# boundary.  On these inputs none moves: every format holds atol=1e-5
+# (measured worst case 2.4e-7), and the greedy tokens are exact.
+@pytest.mark.parametrize("step", ["fresh", "resume", "decode"])
+def test_packed_forward_logits_match_reference(qparity, step):
+    want, got, _, _ = qparity[step]
+    assert want.size > 0
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    assert (got.argmax(-1) == want.argmax(-1)).all()
+
+
+@pytest.mark.parametrize("step", ["fresh", "resume", "decode"])
+def test_packed_forward_pool_contents_match_reference(qparity, step):
+    _, _, want, got = qparity[step]
     for w, g in zip(want, got):
         np.testing.assert_allclose(g, w, atol=ATOL, rtol=0)

@@ -10,7 +10,9 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduce_config
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mpq_matmul as mm
 from repro_torch.launch import serve as launcher
 from repro_torch.models.model import init_paged_cache, init_params
 from repro_torch.serve import Request, ServeConfig, ServingEngine
@@ -83,6 +85,45 @@ def test_kernel_wrapper_has_no_fallback_off_the_cpu():
     q = torch.empty(1, 4, 2, 32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         fa.flash_attention(q, q, q)
+
+
+def test_no_port_file_mentions_the_kernel_switch():
+    """The reference's QuantConfig switch between kernel and oracle has no
+    counterpart: the wrappers choose by device, so no field can lead a
+    CUDA tensor to a plain version."""
+    files = list(PKG.rglob("*.py")) + list(PKG.rglob("*.cu")) + \
+        list(PKG.rglob("*.cuh")) + [ROOT / "chip_smoke.py"]
+    hits = [str(f) for f in files if "use_kernel" in f.read_text()]
+    assert not hits, hits
+
+
+def _mm_operands(device):
+    wp = torch.zeros(32, 8, dtype=torch.int8, device=device)
+    ws = torch.ones(1, 8, device=device)
+    return wp, ws
+
+
+def test_packed_matmuls_on_the_cpu_never_touch_the_build(monkeypatch):
+    def no_build(*a, **k):
+        raise AssertionError("the build was reached from a CPU tensor")
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(_build, "build_all", no_build)
+    wp, ws = _mm_operands("cpu")
+    before = mm.launches
+    y = mm.wo_matmul(torch.ones(3, 64), wp, ws, w_bits=4)
+    z = mm.mpq_matmul(torch.ones(3, 64, dtype=torch.int8), torch.ones(3, 1),
+                      wp, ws, a_bits=8, w_bits=4)
+    assert y.shape == z.shape == (3, 8) and mm.launches == before
+
+
+def test_packed_matmuls_have_no_fallback_off_the_cpu():
+    wp, ws = _mm_operands("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        mm.wo_matmul(torch.empty(3, 64, device="meta"), wp, ws, w_bits=4)
+    with pytest.raises(ValueError, match="no kernel"):
+        mm.mpq_matmul(torch.empty(3, 64, dtype=torch.int8, device="meta"),
+                      torch.empty(3, 1, device="meta"), wp, ws, a_bits=8,
+                      w_bits=4)
 
 
 @pytest.mark.parametrize("field,value", [

@@ -5,7 +5,11 @@ float32 weights with ``record_logits=True``: prompts longer than the
 prefill chunk (the resumed path), two prompts sharing a whole-page prefix
 that is not page-aligned (prefix sharing plus a copy-on-write page), and
 more requests than slots.  Tokens must be equal, per-token logits within
-``atol=1e-5``, and the engines' counters and TTFT ticks equal.
+``atol=1e-5``, and the engines' counters and TTFT ticks equal.  The same
+requests are then served with packed weights (w4a16 on the weight-only
+kernel's plain version, w8a8 on the integer one's): the reference's
+``quantize_for_serving`` tree crosses the bridge, and tokens, counters
+and TTFT ticks must again be equal.
 """
 import contextlib
 import io
@@ -17,10 +21,15 @@ import pytest
 import torch
 
 from repro.models import ArchConfig as JaxCfg
+from repro.core.quant import QuantConfig as JaxQuant
+from repro.kernels.ops import PackedWeight as JaxPacked
 from repro.models import init_params as jax_init_params
+from repro.models.model import quantize_for_serving as jax_quantize
 from repro.serve import Request as JaxRequest
 from repro.serve import ServeConfig as JaxServeConfig
 from repro.serve import ServingEngine as JaxEngine
+from repro_torch.core.quant import QuantConfig
+from repro_torch.kernels import mpq_matmul
 from repro_torch.launch import serve as launcher
 from repro_torch.models.config import ArchConfig
 from repro_torch.serve import Request, ServeConfig, ServingEngine
@@ -120,3 +129,75 @@ def test_launcher_twin_runs_on_cpu():
     lines = out.getvalue().splitlines()
     assert sum(ln.startswith("req ") and "[done" in ln for ln in lines) == 3
     assert lines[-1].startswith("device cpu:")
+
+
+# -- packed weights -----------------------------------------------------------
+
+QUANTS = {"w4a16": ("wo", 8, 4), "w8a8": ("int", 8, 8)}
+
+
+def _packed_numpy(tree):
+    def leaf(x):
+        if isinstance(x, JaxPacked):
+            return {"packed": np.asarray(x.packed),
+                    "scale": np.asarray(x.scale), "k": x.k, "n": x.n,
+                    "w_bits": x.w_bits}
+        return np.asarray(x)
+    return jax.tree.map(leaf, tree,
+                        is_leaf=lambda x: isinstance(x, JaxPacked))
+
+
+@pytest.fixture(scope="module", params=sorted(QUANTS))
+def qengines(request):
+    mode, a, w = QUANTS[request.param]
+    jc = JaxCfg(**DENSE, dtype=jnp.float32).with_(
+        quant=JaxQuant(mode=mode, a_bits=a, w_bits=w, use_kernel=False))
+    tc = ArchConfig(**DENSE, dtype=torch.float32).with_(
+        quant=QuantConfig(mode=mode, a_bits=a, w_bits=w))
+    jp, _ = jax_quantize(jc, jax_init_params(jc, jax.random.PRNGKey(0)))
+    tp = from_jax_numpy(tc, _packed_numpy(jp), device="cpu")
+    prompts = _prompts()
+    je = JaxEngine(jc, jp, JaxServeConfig(**SERVE))
+    jout = je.run([JaxRequest(i, p) for i, p in enumerate(prompts)])
+    te = ServingEngine(tc, tp, ServeConfig(**SERVE), device="cpu")
+    tout = te.run([Request(i, p) for i, p in enumerate(prompts)])
+    return {"jax": je, "port": te, "jout": {r.rid: r for r in jout},
+            "tout": {r.rid: r for r in tout}}
+
+
+def test_packed_tokens_equal_reference(qengines):
+    assert len(qengines["tout"]) == len(_prompts())
+    for rid, ref in qengines["jout"].items():
+        got = qengines["tout"][rid]
+        assert got.done and not got.failed
+        assert got.out_tokens == ref.out_tokens, rid
+
+
+@pytest.mark.parametrize("counter", COUNTERS)
+def test_packed_counters_equal_reference(qengines, counter):
+    assert getattr(qengines["port"], counter) == \
+        getattr(qengines["jax"], counter)
+
+
+def test_packed_ttft_ticks_equal_reference(qengines):
+    for rid, ref in qengines["jout"].items():
+        assert qengines["tout"][rid].ttft_ticks == ref.ttft_ticks, rid
+
+
+def test_packed_logits_match_reference(qengines):
+    for rid, ref in qengines["jout"].items():
+        for a, b in zip(qengines["tout"][rid].logits, ref.logits):
+            np.testing.assert_allclose(a, np.asarray(b), atol=1e-5, rtol=0)
+
+
+def test_launcher_twin_serves_packed_weights_on_cpu():
+    out = io.StringIO()
+    before = mpq_matmul.launches
+    with contextlib.redirect_stdout(out):
+        launcher.main(["--arch", "qwen2.5-3b", "--reduce", "--device", "cpu",
+                       "--quant", "w4a16", "--requests", "3",
+                       "--max-batch", "2", "--max-new-tokens", "4"])
+    lines = out.getvalue().splitlines()
+    assert lines[0] == "serving with w4a16: packed 8 tensors"
+    assert sum(ln.startswith("req ") and "[done" in ln for ln in lines) == 3
+    assert mpq_matmul.launches == before      # CPU: plain versions only
