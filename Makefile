@@ -15,8 +15,9 @@ smoke:
 
 # the PyTorch port's parity tests (CPU): the port against the JAX package
 # on the same inputs, the packed-weight ones (test_torch_quant.py,
-# test_torch_mpq_matmul.py) included.  Its CUDA kernels are checked on a
-# GPU by `python3 chip_smoke.py`.
+# test_torch_mpq_matmul.py) and the MLA ones (test_torch_mla_kernel.py,
+# test_torch_mla_model.py, test_torch_mla_serving.py) included.  Its CUDA
+# kernels are checked on a GPU by `python3 chip_smoke.py`.
 test-torch:
 	$(PY) -m pytest -q tests/test_torch_*.py
 

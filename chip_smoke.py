@@ -44,11 +44,34 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      are held as in phase 6, and a token may differ only at a position
      whose top-two gap in the plain forward lies within twice the
      kernel-free rounding noise at that position; each such position is
-     printed).
+     printed);
+  8. serve deepseek-v2-lite at its full widths and depth with its dense
+     MLA block in every layer (``deepseek-v2-lite-dense``, 27 layers,
+     bf16, random weights from a seeded generator): 16 requests of
+     288-1024 prompt tokens, all longer than the 256-token chunk, two
+     sharing a page-aligned prefix.  Every dispatch is logged with the
+     launches it made: a fresh wave launches the flash kernel 27 times, a
+     resumed wave the paged kernel 27 times, a decode step the MLA kernel
+     27 times, and nothing else.  Every request's teacher-forced logits
+     are held against a plain naive-form forward (no kernel, no pool)
+     within SERVE_MLA_REL_TOL; the same engine with a planted fault (the
+     MLA kernel's softmax scale taken from r + dr), serving two of them,
+     must land outside it;
+  9. a 2-layer float32 deepseek-v2-lite-dense at full width through the
+     engine: its greedy tokens must equal the plain forward's.
+
+Phase 2 also holds the MLA path's kernels (phase 2b): the flash forward
+at q/k 192 / v 128 on a fresh 256-token chunk (KV = H = 16), the paged
+partials at the same widths on a resumed chunk's expanded window, and
+the compressed-space MLA partials at B 8, H 16, r 512, dr 64, page 16,
+P in {64, 128, 256} pages a slot, with a hole, a page past its slot's
+position and an inactive slot, in bf16 and float32; and at P 128 again
+with 2 and 3 pages a split, and at page size 32 with 1 and 2.
 
 The second-to-last line is a JSON object listing the ported kernels; the
 last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
-``--kernels-only`` stops after the kernel checks (phases 1, 2 and 5).
+``--kernels-only`` stops after the kernel checks (phases 1, 2, 2b and
+5).
 """
 from __future__ import annotations
 
@@ -68,6 +91,18 @@ FLASH_TOL_BF16 = 2e-2               # bf16 output ulp + bf16 weights per tile
 FLASH_TOL_F32 = 1e-4                # summation order only
 PAGED_TOL_BF16 = 2e-2
 PAGED_TOL_F32 = 1e-4
+# MLA partials, combined: the kernel rounds its weights to bf16 as the
+# plain version does, but from float32 exponents computed in another
+# order, so a weight may land one bf16 step away; outputs are weighted
+# means of pool rows of magnitude ~1
+MLA_TOL_BF16 = 2e-2
+MLA_TOL_F32 = 1e-4                  # summation order only
+# teacher-forced logits of the 27-layer bf16 deepseek-v2-lite-dense engine
+# against the plain naive-form forward, as a share of the row's largest
+# |logit|.  The engine computes decode in the absorbed form (q_c = q_nope
+# W_UK rounded to bf16, context in the latent space, then W_UV), the plain
+# forward in the expanded form, so the two round in different places.
+SERVE_MLA_REL_TOL = 5e-2
 # teacher-forced logits, 36 bf16 layers: |engine - plain| <= this share of
 # the row's largest |logit| (bf16 keeps ~3 significant digits per op)
 SERVE_REL_TOL_BF16 = 5e-2
@@ -153,21 +188,27 @@ def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS):
 # Phase 2: kernels against their plain versions.
 # ---------------------------------------------------------------------------
 
-def check_flash(torch, timer, dtype, B=8, S=256, H=16, KV=2, dh=128):
+def check_flash(torch, timer, dtype, B=8, S=256, H=16, KV=2, dh=128,
+                dv=None):
+    """The flash forward at q/k width ``dh`` and v width ``dv`` (default
+    ``dh``; MLA's fresh chunk: 192 and 128)."""
     from repro_torch.kernels import flash_attention as fa
+    dv = dv or dh
     g = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v = (torch.randn((B, S, n, dh), generator=g, device="cuda")
-               .to(dtype) for n in (H, KV, KV))
+    q, k, v = (torch.randn((B, S, n, d), generator=g, device="cuda")
+               .to(dtype) for n, d in ((H, dh), (KV, dh), (KV, dv)))
     got = fa.flash_attention(q, k, v, kv_valid=S)
     want = fa.flash_attention_plain(q, k, v, S)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     tol = FLASH_TOL_BF16 if dtype == torch.bfloat16 else FLASH_TOL_F32
-    name = f"flash_attention_fwd[{str(dtype).split('.')[-1]}]"
+    name = f"flash_attention_fwd[{str(dtype).split('.')[-1]}, dk {dh}, " \
+        f"dv {dv}]"
     if not err <= tol:
         fail(f"{name}: max |kernel - plain| {err} > {tol}")
     rec = {"name": "flash_attention_fwd", "dtype": str(dtype),
-           "shapes": {"q": [B, S, H, dh], "k": [B, S, KV, dh]},
+           "shapes": {"q": [B, S, H, dh], "k": [B, S, KV, dh],
+                      "v": [B, S, KV, dv]},
            "max_abs_err": err, "tol": tol}
     if dtype != torch.bfloat16:
         return rec
@@ -179,20 +220,22 @@ def check_flash(torch, timer, dtype, B=8, S=256, H=16, KV=2, dh=128):
     rec["library_ms"] = timer.ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                               enable_gqa=True))
     pairs = B * H * S * (S + 1) // 2
-    nbytes = (2 * B * S * H * dh + 2 * B * S * KV * dh) * q.element_size()
-    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 4 * dh * pairs)
+    nbytes = (B * S * H * (dh + dv) + B * S * KV * (dh + dv)) * \
+        q.element_size()
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes,
+                                                2 * (dh + dv) * pairs)
     return rec
 
 
-def paged_case(torch, dtype, B, Sq, H, KV, dh, ps, P, seed):
+def paged_case(torch, dtype, B, Sq, H, KV, dh, ps, P, seed, dv=None):
     """A pool as the serving engine leaves it: each slot maps distinct
     pages for its filled rows (no holes), the last query at qpos."""
     import numpy as np
     rng = np.random.RandomState(seed)
     n = B * P
     g = torch.Generator(device="cuda").manual_seed(seed)
-    kp, vp = (torch.randn((n, ps, KV, dh), generator=g, device="cuda")
-              .to(dtype) for _ in range(2))
+    kp, vp = (torch.randn((n, ps, KV, d), generator=g, device="cuda")
+              .to(dtype) for d in (dh, dv or dh))
     q = torch.randn((B, Sq, H, dh), generator=g, device="cuda").to(dtype)
     fill = np.linspace(Sq + 24, P * ps - 8, B).astype(np.int64)
     tbl = np.full((B, P), -1, np.int32)
@@ -209,13 +252,17 @@ def paged_case(torch, dtype, B, Sq, H, KV, dh, ps, P, seed):
 
 
 def check_paged(torch, timer, dtype, Sq, B=8, H=16, KV=2, dh=128, ps=16,
-                P=128):
+                P=128, dv=None):
+    """The paged partials at q/k width ``dh`` and v width ``dv`` (default
+    ``dh``; MLA's resumed chunk: 192 and 128 with KV = H)."""
     from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.models.attention import (_combine_page_partials,
                                               _pages_per_split)
+    dv = dv or dh
     kp, vp, q, tbl, qpos, kvv, fill = paged_case(torch, dtype, B, Sq, H, KV,
-                                                 dh, ps, P, seed=2 + Sq)
-    c = _pages_per_split(B, Sq, H, P, dh)
+                                                 dh, ps, P, seed=2 + Sq,
+                                                 dv=dv)
+    c = _pages_per_split(B, Sq, H, P, dv)
     got = pfd.paged_flash_decode_partials(kp, vp, q, tbl, qpos, kvv,
                                           pages_per_split=c)
     want = pfd.paged_flash_decode_partials_plain(kp, vp, q, tbl, qpos, kvv, c)
@@ -230,11 +277,12 @@ def check_paged(torch, timer, dtype, Sq, B=8, H=16, KV=2, dh=128, ps=16,
         .abs().max().item()
     tol = PAGED_TOL_BF16 if dtype == torch.bfloat16 else PAGED_TOL_F32
     if not err <= tol:
-        fail(f"paged partials Sq={Sq} {dtype}: max |kernel - plain| {err} "
-             f"> {tol}")
+        fail(f"paged partials Sq={Sq} dk {dh} dv {dv} {dtype}: max |kernel "
+             f"- plain| {err} > {tol}")
     rec = {"name": "paged_flash_decode_partials", "dtype": str(dtype),
            "shapes": {"q": [B, Sq, H, dh], "pool": list(kp.shape),
-                      "tbl": [B, P], "pages_per_split": c},
+                      "v_pool": list(vp.shape), "tbl": [B, P],
+                      "pages_per_split": c},
            "max_abs_err": err, "tol": tol}
     if dtype != torch.bfloat16:
         return rec
@@ -250,10 +298,97 @@ def check_paged(torch, timer, dtype, Sq, B=8, H=16, KV=2, dh=128, ps=16,
                     for qp, f in zip(qpos.tolist(), fill)))
     el = q.element_size()
     n_split = -(-P // c)
-    nbytes = (q.numel() * el + 2 * live_rows * KV * dh * el
+    nbytes = (q.numel() * el + live_rows * KV * (dh + dv) * el
               + B * P * 4 + B * Sq * 4 + B * 4
-              + B * Sq * H * n_split * (2 + dh) * 4)
-    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 4 * dh * H * pairs)
+              + B * Sq * H * n_split * (2 + dv) * 4)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes,
+                                                2 * (dh + dv) * H * pairs)
+    return rec
+
+
+def mla_case(torch, dtype, B, H, r, dr, ps, P, seed):
+    """A latent pool as the serving engine leaves it, with the odd cases:
+    slot 0 has an unmapped page mid-table, slot 1 a mapped page wholly
+    past its position, the last slot is inactive (position -1, empty
+    table); the other positions spread over the table, the last page
+    partly filled."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    n = B * P
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pool = torch.randn((n, ps, r + dr), generator=g, device="cuda").to(dtype)
+    q_c = torch.randn((B, 1, H, r), generator=g, device="cuda").to(dtype)
+    q_r = torch.randn((B, 1, H, dr), generator=g, device="cuda").to(dtype)
+    pos = np.linspace(ps + 3, P * ps - 5, B).astype(np.int64)
+    tbl = np.full((B, P), -1, np.int32)
+    perm = rng.permutation(n)
+    k = 0
+    for b in range(B - 1):
+        m = int(pos[b]) // ps + 1 + (b == 1)        # slot 1: one page more
+        m = min(m, P)
+        tbl[b, :m] = perm[k:k + m]
+        k += m
+    tbl[0, 1] = -1                                   # a hole
+    pos[-1] = -1
+    as_t = lambda a: torch.from_numpy(a).to("cuda")  # noqa: E731
+    return pool, q_c, q_r, as_t(tbl), as_t(pos.astype(np.int32)), tbl, pos
+
+
+def check_mla(torch, timer, dtype, P, B=8, H=16, r=512, dr=64, ps=16,
+              scale_dim=192, c=None):
+    """The compressed-space MLA partials at deepseek-v2-lite's widths,
+    ``P`` pages a slot; ``c`` pages a split (default: the engine's
+    choice, 1 at these sizes).  Only the default split is timed."""
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.models.attention import (_combine_page_partials,
+                                              _pages_per_split)
+    pool, q_c, q_r, tbl, pos, tbl_np, pos_np = mla_case(
+        torch, dtype, B, H, r, dr, ps, P, seed=20 + P)
+    timed = c is None
+    if timed:
+        c = _pages_per_split(B, 1, H, P, r)
+    run = lambda: pfd.mla_paged_decode_partials(  # noqa: E731
+        pool, q_c, q_r, tbl, pos, r, scale_dim, pages_per_split=c)
+    plain = lambda: pfd.mla_paged_decode_partials_plain(  # noqa: E731
+        pool, q_c, q_r, tbl, pos, r, scale_dim, c)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    skipped = want[0] <= -1e30
+    if not (bool(skipped[-1].all()) and bool((got[0][skipped] == -1e30).all())
+            and bool((got[1][skipped] == 0).all())
+            and bool((got[2][skipped] == 0).all())):
+        fail(f"mla partials P={P} ps={ps} c={c} {dtype}: skipped pages are "
+             "not the exact identities (-1e30, 0, 0)")
+    # the inactive last slot's combined output is 0 in both; compare all
+    err = (_combine_page_partials(*got) - _combine_page_partials(*want)) \
+        .abs().max().item()
+    tol = MLA_TOL_BF16 if dtype == torch.bfloat16 else MLA_TOL_F32
+    if not err <= tol:
+        fail(f"mla partials P={P} ps={ps} c={c} {dtype}: max |kernel - "
+             f"plain| {err} > {tol}")
+    rec = {"name": "mla_paged_decode_partials", "dtype": str(dtype),
+           "shapes": {"q_c": [B, 1, H, r], "q_rope": [B, 1, H, dr],
+                      "pool": list(pool.shape), "tbl": [B, P],
+                      "pages_per_split": c},
+           "max_abs_err": err, "tol": tol}
+    if dtype != torch.bfloat16 or not timed:
+        return rec
+    rec["kernel_ms"] = timer.ms(run)
+    rec["plain_ms"] = timer.ms(plain)
+    rec["library_ms"] = None
+    # this run's live rows: mapped rows at or before each slot's position;
+    # every partial is written (identities too)
+    live = sum(min(int(p) + 1, (j + 1) * ps) - j * ps
+               for b, p in enumerate(pos_np) for j in range(P)
+               if tbl_np[b, j] >= 0 and j * ps <= p)
+    el = pool.element_size()
+    n_split = -(-P // c)
+    nbytes = (live * (r + dr) * el + (q_c.numel() + q_r.numel()) * el
+              + B * P * 4 + B * 4 + B * H * n_split * (2 + r) * 4)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        nbytes, 2 * H * (2 * r + dr) * live)
+    rec["live_rows"] = live
+    rec["partials_bytes"] = B * H * n_split * (2 + r) * 4
     return rec
 
 
@@ -663,6 +798,237 @@ def serve_f32(torch, quant=None):
              f"{bad}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 8-9: MLA serving (deepseek-v2-lite's widths, its dense block).
+# ---------------------------------------------------------------------------
+
+def plain_mla_forward(torch, params, cfg, tokens):
+    """Contiguous forward of one sequence in MLA's naive (expanded) form
+    for every position, with the plain attention (no pool, no page
+    table, no kernel): (S, padded_vocab) logits."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.blocks import apply_norm
+    from repro_torch.models.common import embed_lookup, rms_norm, rope
+    if cfg.mlp_act != "silu_glu":
+        fail(f"plain_mla_forward covers SwiGLU MLPs, not {cfg.mlp_act}")
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    dev = params.embed.device
+    tok = torch.tensor([tokens], device=dev)
+    s = tok.shape[1]
+    pos = torch.arange(s, dtype=torch.int32, device=dev)[None]
+    x = embed_lookup(params.embed, tok)
+    for blk in params.blocks:
+        a, f = blk.attn, blk.ffn
+        y = apply_norm(blk.ln1, x, cfg)
+        q = (y @ a["w_q"]).reshape(1, s, h, dn + dr)
+        ckv = y @ a["w_dkv"]
+        c = rms_norm(ckv[..., :r], a["kv_norm"])
+        kr = rope(ckv[..., r:][:, :, None, :], pos, cfg.rope_theta)
+        k = torch.cat([(c @ a["w_uk"]).reshape(1, s, h, dn),
+                       kr.expand(1, s, h, dr)], dim=-1)
+        v = (c @ a["w_uv"]).reshape(1, s, h, dv)
+        qq = torch.cat([q[..., :dn], rope(q[..., dn:], pos, cfg.rope_theta)],
+                       dim=-1)
+        o = flash_attention_plain(qq, k, v)
+        x = x + o.reshape(1, s, h * dv) @ a["w_o"]
+        y = apply_norm(blk.ln2, x, cfg)
+        g = torch.nn.functional.silu((y @ f["w_gate"]).float())
+        x = x + (g.to(x.dtype) * (y @ f["w_up"])) @ f["w_down"]
+    x = apply_norm(params.final_norm, x, cfg)
+    return (x @ params.lm_head)[0]
+
+
+def mla_traffic(vocab: int, n: int = 16, seed: int = 1):
+    """16 prompts of 288-1024 tokens, every one longer than the 256-token
+    chunk budget, in shuffled order; request 8 repeats request 0's first
+    512 tokens (a page-aligned shared prefix)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    lens = np.linspace(288, 1024, n).astype(int)
+    rng.shuffle(lens)
+    lens[0] = 1024
+    prompts = [[int(t) for t in rng.randint(0, vocab, int(m))] for m in lens]
+    prompts[8] = prompts[0][:512] + [int(t) for t in
+                                      rng.randint(0, vocab, 200)]
+    return prompts
+
+
+def record_dispatches(eng, counters):
+    """Wrap the engine's two steps so that every dispatch logs its kind
+    ('fresh' / 'resumed' prefill wave, or 'decode') and each counter's
+    increase over it."""
+    log = []
+
+    def wrap(step, kind):
+        def run(params, cache, *args):
+            before = {n: c() for n, c in counters.items()}
+            out = step(params, cache, *args)
+            log.append((kind(args), {n: c() - before[n]
+                                     for n, c in counters.items()}))
+            return out
+        return run
+    eng._prefill = wrap(eng._prefill,
+                        lambda a: "fresh" if a[-1] is None else "resumed")
+    eng._decode = wrap(eng._decode, lambda a: "decode")
+    return log
+
+
+MLA_SERVE = dict(max_batch=8, max_prompt=256, page_size=16, max_seq=2048,
+                 max_new_tokens=32, record_logits=True)
+
+
+def mla_engine_logits(torch, cfg, params, prompts, fault=False):
+    """Serve ``prompts`` on a fresh engine; with ``fault`` the MLA decode
+    kernel is called with the softmax scale taken from r + dr instead of
+    nope + rope.  Returns the finished requests."""
+    from repro_torch.models import mla
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    eng = ServingEngine(cfg, params, ServeConfig(**MLA_SERVE), device="cuda")
+    reqs = [Request(i, p) for i, p in enumerate(prompts)]
+    good = mla.mla_paged_decode_partials
+    if fault:
+        mla.mla_paged_decode_partials = (
+            lambda pool, qc, qr, tbl, pos, r, scale_dim, **kw:
+            good(pool, qc, qr, tbl, pos, r, pool.shape[-1], **kw))
+    try:
+        eng.run(reqs)
+    finally:
+        mla.mla_paged_decode_partials = good
+    del eng
+    torch.cuda.empty_cache()
+    return reqs
+
+
+def serve_mla(torch, card, cfg, params):
+    """Phase 8: serve the dense deepseek-v2-lite variant at full width and
+    depth in bf16 through submit/tick/drain: every request completes, the
+    launch counts per dispatch are exact, and every request's
+    teacher-forced logits match the plain naive-form forward within
+    SERVE_MLA_REL_TOL, which the planted scale fault must exceed."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    n_layers = cfg.n_layers
+    eng = ServingEngine(cfg, params, ServeConfig(**MLA_SERVE), device="cuda")
+    eng.warmup()
+    prompts = mla_traffic(cfg.vocab_size)
+    reqs = [Request(i, p) for i, p in enumerate(prompts)]
+    counters = {"flash_attention_fwd": lambda: fa.launches,
+                "paged_flash_decode_partials": lambda: pfd.launches,
+                "mla_paged_decode_partials": lambda: pfd.mla_launches}
+    log = record_dispatches(eng, counters)
+    fa.launches = pfd.launches = pfd.mla_launches = 0
+    wall, per_decode = drive(torch, eng, reqs, counters)
+    eng.drain()
+    launches = {n: c() for n, c in counters.items()}
+    for r in reqs:
+        if not r.done or r.failed or \
+                len(r.out_tokens) != MLA_SERVE["max_new_tokens"]:
+            fail(f"mla: request {r.rid}: done={r.done} failed={r.failed} "
+                 f"tokens={len(r.out_tokens)}")
+    # each dispatch kind runs its one kernel once per layer, no other
+    want = {"fresh": "flash_attention_fwd",
+            "resumed": "paged_flash_decode_partials",
+            "decode": "mla_paged_decode_partials"}
+    kinds = {k: 0 for k in want}
+    for kind, got in log:
+        kinds[kind] += 1
+        exp = {n: (n_layers if n == want[kind] else 0) for n in counters}
+        if got != exp:
+            fail(f"mla: a {kind} dispatch launched {got}, want {exp}")
+    if min(kinds.values()) < 1:
+        fail(f"mla: dispatch kinds {kinds}: each must run at least once")
+    if eng.n_shared_admissions < 1:
+        fail("mla: the shared-prefix request was not admitted as a sharer")
+    st = eng.stats()
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    print(json.dumps({"phase": "serve_mla", "arch": cfg.name,
+                      "dtype": "bf16", "layers": n_layers,
+                      "requests": len(reqs), "tokens": n_tok, "wall_s": wall,
+                      "tokens_per_s": n_tok / wall, "stats": st,
+                      "dispatches": kinds, "launches": launches,
+                      "launches_per_decode_tick": per_decode,
+                      "latent_pool_bytes": sum(
+                          t.numel() * t.element_size()
+                          for t in eng.cache[0].values()),
+                      "card": card}), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    # teacher-forced logits of every request against the plain naive-form
+    # forward; the same engine with the planted scale fault, serving the
+    # shared-prefix request and the longest, must land outside the bound
+    checks = []
+    bad = mla_engine_logits(torch, cfg, params, [prompts[0], prompts[8]],
+                            fault=True)
+    faulty = {0: bad[0], 8: bad[1]}
+    with torch.inference_mode():
+        for rid in range(len(reqs)):
+            rec = {"rid": rid}
+            runs = [("engine", reqs[rid])]
+            if rid in faulty:
+                runs.append(("fault", faulty[rid]))
+            for tag, r in runs:
+                seq = r.prompt + r.out_tokens[:-1]
+                start = len(r.prompt) - 1
+                got = torch.from_numpy(np.stack(r.logits))
+                ref = plain_mla_forward(torch, params, cfg, seq)
+                ref = ref[start:].float().cpu()
+                rec[tag] = rel_err(got, ref)
+                if tag == "engine":
+                    rec["argmax_agree"] = (got.argmax(-1) == ref.argmax(-1)) \
+                        .float().mean().item()
+            rec["rel_tol"] = SERVE_MLA_REL_TOL
+            checks.append(rec)
+    print(json.dumps({"phase": "serve_mla_check", "requests": checks}),
+          flush=True)
+    for rec in checks:
+        if not rec["engine"] <= SERVE_MLA_REL_TOL:
+            fail(f"mla: request {rec['rid']}: teacher-forced logits differ "
+                 f"by {rec['engine']} of the row max (> {SERVE_MLA_REL_TOL})")
+        if "fault" in rec and not rec["fault"] > SERVE_MLA_REL_TOL:
+            fail(f"mla: request {rec['rid']}: the planted scale fault moves "
+                 f"the logits by {rec['fault']} of the row max, inside the "
+                 f"bound {SERVE_MLA_REL_TOL}: the check cannot see it")
+    return launches, per_decode
+
+
+def serve_mla_f32(torch):
+    """Phase 9: a 2-layer float32 deepseek-v2-lite-dense at full width
+    through the engine; its greedy tokens must equal the plain naive-form
+    forward's."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = get_config("deepseek-v2-lite-dense").with_(
+        n_layers=2, pattern=(("scan", "mla_mlp", 2),), dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(4),
+                         device="cuda")
+    rng = np.random.RandomState(6)
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+               for n in (40, 300, 600, 17, 260, 90)]
+    reqs = mla_engine_logits(torch, cfg, params, prompts)
+    bad, gaps = [], []
+    with torch.inference_mode():
+        for r in reqs:
+            seq = r.prompt + r.out_tokens[:-1]
+            ref = plain_mla_forward(torch, params, cfg, seq)
+            ref = ref[len(r.prompt) - 1:]
+            top2 = ref.float().topk(2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).min().item())
+            want = ref.argmax(-1).tolist()
+            if want != r.out_tokens:
+                bad.append((r.rid, r.out_tokens, want))
+    print(json.dumps({"phase": "serve_mla_f32", "layers": 2,
+                      "requests": len(reqs),
+                      "tokens": sum(len(r.out_tokens) for r in reqs),
+                      "token_mismatches": len(bad),
+                      "smallest_top2_gap": min(gaps)}), flush=True)
+    if bad:
+        fail(f"f32 MLA engine tokens differ from the plain forward: {bad}")
+
+
 def kernel_entry(name, source, replaces, launches, rec):
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + source,
@@ -670,6 +1036,42 @@ def kernel_entry(name, source, replaces, launches, rec):
             "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+
+
+def kernel_checks(torch, timer):
+    """Phases 2 and 2b: the attention kernels against their plain
+    versions.  Returns (qwen2.5-3b records, MLA path records)."""
+    recs = [check_flash(torch, timer, torch.bfloat16),
+            check_flash(torch, timer, torch.float32),
+            check_paged(torch, timer, torch.bfloat16, Sq=1),
+            check_paged(torch, timer, torch.bfloat16, Sq=256),
+            check_paged(torch, timer, torch.float32, Sq=1),
+            check_paged(torch, timer, torch.float32, Sq=256)]
+    # deepseek-v2-lite's MLA path: the fresh chunk's naive form (dk 192,
+    # dv 128, KV = H = 16), the resumed chunk's expanded window viewed as
+    # a pool of B * P pages, and the compressed-space decode partials
+    mla = {"flash": check_flash(torch, timer, torch.bfloat16, KV=16, dh=192,
+                                dv=128),
+           "paged": check_paged(torch, timer, torch.bfloat16, Sq=256, KV=16,
+                                dh=192, dv=128),
+           "flash_f32": check_flash(torch, timer, torch.float32, KV=16,
+                                    dh=192, dv=128),
+           "paged_f32": check_paged(torch, timer, torch.float32, Sq=256,
+                                    KV=16, dh=192, dv=128)}
+    for P in (64, 128, 256):
+        mla[f"mla_P{P}"] = check_mla(torch, timer, torch.bfloat16, P)
+        mla[f"mla_P{P}_f32"] = check_mla(torch, timer, torch.float32, P)
+    # the kernel's online softmax across pages (several pages a split)
+    # and across the 16-row sub-tiles of one page (page size 32), which
+    # the engine takes when the partials would pass 64 MiB or pages are
+    # larger; untimed
+    for ps, c in ((16, 2), (16, 3), (32, 1), (32, 2)):
+        for tag, dt in (("", torch.bfloat16), ("_f32", torch.float32)):
+            mla[f"mla_P128_ps{ps}_c{c}{tag}"] = check_mla(
+                torch, timer, dt, 128, ps=ps, c=c)
+    for rec in recs + list(mla.values()):
+        print(json.dumps(dict(phase="kernel", **rec)), flush=True)
+    return recs, mla
 
 
 def main() -> None:
@@ -693,14 +1095,7 @@ def main() -> None:
                       "ptxas": ptxas}), flush=True)
 
     timer = Timer(torch)
-    recs = [check_flash(torch, timer, torch.bfloat16),
-            check_flash(torch, timer, torch.float32),
-            check_paged(torch, timer, torch.bfloat16, Sq=1),
-            check_paged(torch, timer, torch.bfloat16, Sq=256),
-            check_paged(torch, timer, torch.float32, Sq=1),
-            check_paged(torch, timer, torch.float32, Sq=256)]
-    for rec in recs:
-        print(json.dumps(dict(phase="kernel", **rec)), flush=True)
+    recs, mla_recs = kernel_checks(torch, timer)
     t0 = time.perf_counter()
     mm_recs = [check_matmul(torch, timer, *case, seed=i)
                for i, case in enumerate(mm_cases())]
@@ -736,6 +1131,15 @@ def main() -> None:
     for tag in ("w4a16", "w8a8"):
         serve_f32(torch, tag)
 
+    dense = get_config("deepseek-v2-lite-dense")
+    mla_params = init_params(dense,
+                             torch.Generator(device="cuda").manual_seed(2),
+                             device="cuda")
+    mla_launches, mla_per_decode = serve_mla(torch, card, dense, mla_params)
+    del mla_params
+    torch.cuda.empty_cache()
+    serve_mla_f32(torch)
+
     for rec in (recs[0], recs[2], recs[3]):
         print(json.dumps({
             "name": rec["name"], "shapes": rec["shapes"],
@@ -747,17 +1151,38 @@ def main() -> None:
     for rec in mm_recs:
         print(json.dumps(dict(rec, launches_per_decode_step=per_decode[
             rec["name"]])), flush=True)
+    for rec in mla_recs.values():
+        print(json.dumps(dict(rec, path="deepseek-v2-lite-dense",
+                              launches_per_decode_step=mla_per_decode[
+                                  rec["name"]])), flush=True)
+
+    def mla_path(name, rec):
+        return {"launches": mla_launches[name],
+                "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+                "shapes": rec["shapes"]}
     # the decode-time w_down case (K = 11008) stands for each matmul
     rep = {r["name"]: r for r in mm_recs
            if r["shapes"] == {"M": 8, "K": 11008, "N": 2048}
            and r["format"] in ("w4a16", "w8a8")}
+    # flash and paged: the qwen2.5-3b path's numbers, with the MLA path's
+    # (dk 192, dv 128) beside them
     line = {"kernels": [
-        kernel_entry("flash_attention_fwd", "flash_attention.cu",
-                     "src/repro/kernels/flash_attention.py:36",
-                     launches["flash_attention_fwd"], recs[0]),
-        kernel_entry("paged_flash_decode_partials", "paged_flash_decode.cu",
-                     "src/repro/kernels/paged_flash_decode.py:129",
-                     launches["paged_flash_decode_partials"], recs[2]),
+        dict(kernel_entry("flash_attention_fwd", "flash_attention.cu",
+                          "src/repro/kernels/flash_attention.py:36",
+                          launches["flash_attention_fwd"], recs[0]),
+             mla_path=mla_path("flash_attention_fwd", mla_recs["flash"])),
+        dict(kernel_entry("paged_flash_decode_partials",
+                          "paged_flash_decode.cu",
+                          "src/repro/kernels/paged_flash_decode.py:129",
+                          launches["paged_flash_decode_partials"], recs[2]),
+             mla_path=mla_path("paged_flash_decode_partials",
+                               mla_recs["paged"])),
+        kernel_entry("mla_paged_decode_partials", "mla_paged_decode.cu",
+                     "src/repro/kernels/paged_flash_decode.py:299",
+                     mla_launches["mla_paged_decode_partials"],
+                     mla_recs["mla_P128"]),
         kernel_entry("wo_matmul", "mpq_matmul.cu",
                      "src/repro/kernels/mpq_matmul.py:56",
                      launches["wo_matmul"], dict(rep["wo_matmul"],

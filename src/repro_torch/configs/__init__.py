@@ -1,8 +1,13 @@
 """Config registry: ``--arch <id>`` resolution, input shapes, reduction.
 
-The counterpart of ``repro.configs``.  This slice carries the two arch
-files of the main path (qwen2.5-3b: GQA with QKV bias; stablelm-3b:
-LayerNorm and MHA); the other eight follow in ROADMAP queue 1 item 8.
+The counterpart of ``repro.configs``.  The port carries the arch files
+of its paths (qwen2.5-3b: GQA with QKV bias; stablelm-3b: LayerNorm and
+MHA; deepseek-v2-lite-16b: MLA); the other seven follow in ROADMAP queue
+1 item 8.  Every id is the reference's but one: ``deepseek-v2-lite-dense``,
+deepseek-v2-lite's widths with its dense MLA block in every layer
+(``configs/deepseek_v2_lite.py::DENSE``), served until the MoE blocks
+are ported (queue 1 item 12).  It is the only port-only id: an
+``--arch`` the port accepts is the reference's or this one.
 ``reduce_config`` shrinks a config to a CPU-testable size while keeping
 its block structure, exactly as the reference does.
 """
@@ -14,17 +19,21 @@ from typing import Dict
 
 from repro_torch.models.config import ArchConfig
 
+# arch id -> (module, attribute)
 _MODULES = {
-    "qwen2.5-3b": "qwen2_5_3b",
-    "stablelm-3b": "stablelm_3b",
+    "qwen2.5-3b": ("qwen2_5_3b", "CONFIG"),
+    "stablelm-3b": ("stablelm_3b", "CONFIG"),
+    "deepseek-v2-lite-16b": ("deepseek_v2_lite", "CONFIG"),
+    "deepseek-v2-lite-dense": ("deepseek_v2_lite", "DENSE"),
 }
 
 
 def get_config(name: str) -> ArchConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
-    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
-    return mod.CONFIG
+    module, attr = _MODULES[name]
+    mod = importlib.import_module(f"repro_torch.configs.{module}")
+    return getattr(mod, attr)
 
 
 def all_archs():

@@ -4,7 +4,8 @@
   replaces the Pallas ``_flash_kernel``.
 * :mod:`.paged_flash_decode` — flash partials read through the page
   table (decode and resumed chunks); replaces the Pallas fp body
-  ``_gqa_page_kernel``.
+  ``_gqa_page_kernel``, and, for MLA's absorbed decode against the
+  latent pool, the body ``_mla_page_kernel``.
 * :mod:`.mpq_matmul` — packed sub-byte matmuls, weight-only and integer
   (every ``dense`` of a packed model); replace the Pallas ``_wo_kernel``
   and ``_int_kernel``.  :mod:`.ops` prepares the weights and calls them.

@@ -1,7 +1,9 @@
 // One online-softmax attention tile, shared by the two attention kernels.
 //
 // A block owns BQ query rows of one (KV head, slot) and walks key/value
-// tiles of BK rows that its caller stages in shared memory.  Every score,
+// tiles of BK rows that its caller stages in shared memory.  Queries and
+// keys are DK wide, values DV wide (MLA's naive form: DK = nope + rope =
+// 192, DV = 128; every other attention: DK = DV).  Every score,
 // running max, denominator and output sum is float32; inputs are float or
 // bf16 and are widened when staged.
 //
@@ -44,18 +46,18 @@ extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-template <typename T, int DH, int BQ, int BK>
+template <typename T, int DK, int DV, int BQ, int BK>
 struct FlashTile {
   static constexpr int NT = 4 * BQ;     // threads per block
-  static constexpr int QS = DH + 1;     // padded row strides (floats)
-  static constexpr int KS = DH + 1;
+  static constexpr int QS = DK + 1;     // padded row strides (floats)
+  static constexpr int KS = DK + 1;
   static constexpr int PS = BK + 1;
   static constexpr int NC = BK / 4;     // score columns per thread
-  static constexpr int ND = DH / 4;     // output dims per thread
-  static_assert(BK % 4 == 0 && DH % 4 == 0, "tile widths");
+  static constexpr int ND = DV / 4;     // output dims per thread
+  static_assert(BK % 4 == 0 && DK % 4 == 0 && DV % 4 == 0, "tile widths");
 
   static constexpr size_t smem_bytes() {
-    return sizeof(float) * (BQ * QS + BK * KS + BK * DH + BQ * PS);
+    return sizeof(float) * (BQ * QS + BK * KS + BK * DV + BQ * PS);
   }
 
   float* Qs;
@@ -70,7 +72,7 @@ struct FlashTile {
     Qs = smem;
     Ks = Qs + BQ * QS;
     Vs = Ks + BK * KS;
-    Ps = Vs + BK * DH;
+    Ps = Vs + BK * DV;
     r = threadIdx.x >> 2;
     qq = threadIdx.x & 3;
     m = ATTN_NEG_INF;
@@ -85,9 +87,13 @@ struct FlashTile {
     Qs[rr * QS + d] = src ? round_to<T>(to_f<T>(*src) * scale) : 0.f;
   }
 
-  __device__ void stage_kv_elem(int c, int d, const T* ksrc, const T* vsrc) {
-    Ks[c * KS + d] = ksrc ? to_f<T>(*ksrc) : 0.f;
-    Vs[c * DH + d] = vsrc ? to_f<T>(*vsrc) : 0.f;
+  // Stage element d of key row c (d < DK) or value row c (d < DV).
+  // `src` null = padding row (zeros).
+  __device__ void stage_k_elem(int c, int d, const T* src) {
+    Ks[c * KS + d] = src ? to_f<T>(*src) : 0.f;
+  }
+  __device__ void stage_v_elem(int c, int d, const T* src) {
+    Vs[c * DV + d] = src ? to_f<T>(*src) : 0.f;
   }
 
   // One key tile (staged by the caller, followed by __syncthreads): keys
@@ -101,7 +107,7 @@ struct FlashTile {
     for (int j = 0; j < NC; ++j) s[j] = 0.f;
     const float* qrow = Qs + r * QS;
 #pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
+    for (int d = 0; d < DK; ++d) {
       const float qv = qrow[d];
 #pragma unroll
       for (int j = 0; j < NC; ++j) s[j] = fmaf(qv, Ks[(qq + 4 * j) * KS + d], s[j]);
@@ -137,7 +143,7 @@ struct FlashTile {
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
       const float p = prow[c];
-      const float* vrow = Vs + c * DH + qq;
+      const float* vrow = Vs + c * DV + qq;
 #pragma unroll
       for (int i = 0; i < ND; ++i) acc[i] = fmaf(p, vrow[4 * i], acc[i]);
     }

@@ -3,10 +3,13 @@
 // Replaces: the Pallas fp body `_gqa_page_kernel` behind
 // `repro/kernels/paged_flash_decode.py::paged_flash_decode_partials` (TPU).
 //
-// Inputs: q (B, Sq, H, dh); pools (N, ps, KV, dh); tbl (B, P) int32 page
-// table (-1 = unmapped); qpos (B, Sq) int32 query positions; kv_valid (B,)
-// int32 filled-row bounds.  Output: float32 flash partials m, l
-// (B, Sq, KV, G, S) and acc (B, Sq, KV, G, S, dh) over S splits of the
+// Inputs: q (B, Sq, H, dk); pools K (N, ps, KV, dk) and V (N, ps, KV, dv);
+// tbl (B, P) int32 page table (-1 = unmapped); qpos (B, Sq) int32 query
+// positions; kv_valid (B,) int32 filled-row bounds.  The softmax scale is
+// dk^-0.5.  dk = dv except for MLA's resumed chunk, whose window is
+// expanded to dk = 192, dv = 128 and viewed as a pool by the caller.
+// Output: float32 flash partials m, l (B, Sq, KV, G, S) and acc
+// (B, Sq, KV, G, S, dv) over S splits of the
 // logical page axis, split s covering pages [s*c, (s+1)*c) with
 // c = pages_per_split.  With c = 1 these are exactly the reference's
 // per-logical-page partials; the caller combines the S partials with the
@@ -19,8 +22,8 @@
 // do.  Inside a split the pages are walked in order with the online
 // softmax, which is the same reduction as the combine.
 //
-// What bounds it on an H100: decode (Sq = 1) does ~4 * G * dh operations
-// per cached K/V row of 2 * dh elements, far below the card's ~295
+// What bounds it on an H100: decode (Sq = 1) does ~2 * G * (dk + dv)
+// operations per cached K/V row of dk + dv elements, far below the card's ~295
 // operations per byte, so it is memory-bound: the least time is the
 // mapped, live pages' bytes over 3.35 TB/s.  The design reads each live
 // page once per (slot, KV head) and keeps the gathered window out of
@@ -35,7 +38,7 @@ namespace {
 
 constexpr int BK = 16;                  // pool rows staged per step
 
-template <typename T, int DH, int BQ>
+template <typename T, int DK, int DV, int BQ>
 __global__ void __launch_bounds__(4 * BQ)
 paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                       const T* __restrict__ vpool, const int* __restrict__ tbl,
@@ -44,7 +47,7 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                       float* __restrict__ l_out, float* __restrict__ acc_out,
                       int Sq, int H, int KV, int ps, int P, int pages_per_split,
                       int n_splits, float scale) {
-  using Tile = FlashTile<T, DH, BQ, BK>;
+  using Tile = FlashTile<T, DK, DV, BQ, BK>;
   extern __shared__ float smem[];
   __shared__ int s_maxq;
   Tile tile;
@@ -54,12 +57,12 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   const int G = H / KV, rows = Sq * G;
   const int tid = threadIdx.x;
 
-  for (int idx = tid; idx < BQ * DH; idx += Tile::NT) {
-    const int rr = idx / DH, d = idx % DH, R = row0 + rr;
+  for (int idx = tid; idx < BQ * DK; idx += Tile::NT) {
+    const int rr = idx / DK, d = idx % DK, R = row0 + rr;
     const T* src = nullptr;
     if (R < rows) {
       const int qi = R / G, h = kvh * G + R % G;
-      src = q + (((size_t)b * Sq + qi) * H + h) * DH + d;
+      src = q + (((size_t)b * Sq + qi) * H + h) * DK + d;
     }
     tile.stage_q_elem(rr, d, src, scale);
   }
@@ -85,10 +88,14 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       const int kbase = j * ps + sub;
       // block-uniform skip: unmapped, causally future or unfilled rows
       if (page < 0 || kbase > maxq || kbase >= kvs) break;
-      for (int idx = tid; idx < BK * DH; idx += Tile::NT) {
-        const int c = idx / DH, d = idx % DH;
-        const size_t off = ((((size_t)page * ps) + sub + c) * KV + kvh) * DH + d;
-        tile.stage_kv_elem(c, d, kpool + off, vpool + off);
+      const size_t prow = ((size_t)page * ps + sub) * KV + kvh;
+      for (int idx = tid; idx < BK * DK; idx += Tile::NT) {
+        const int c = idx / DK, d = idx % DK;
+        tile.stage_k_elem(c, d, kpool + (prow + (size_t)c * KV) * DK + d);
+      }
+      for (int idx = tid; idx < BK * DV; idx += Tile::NT) {
+        const int c = idx / DV, d = idx % DV;
+        tile.stage_v_elem(c, d, vpool + (prow + (size_t)c * KV) * DV + d);
       }
       __syncthreads();
       tile.step(kbase, BK, my_qpos, kvs, row_valid);
@@ -101,55 +108,61 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       m_out[os] = tile.m;
       l_out[os] = tile.l;
     }
-    float* dst = acc_out + os * DH + tile.qq;
+    float* dst = acc_out + os * DV + tile.qq;
 #pragma unroll
     for (int i = 0; i < Tile::ND; ++i) dst[4 * i] = tile.acc[i];
   }
 }
 
-template <typename T, int DH, int BQ>
+template <typename T, int DK, int DV, int BQ>
 int launch(const void* q, const void* kp, const void* vp, const int* tbl,
            const int* qpos, const int* kvv, float* m, float* l, float* acc,
            int B, int Sq, int H, int KV, int ps, int P, int pps, int n_splits,
            cudaStream_t stream) {
-  using Tile = FlashTile<T, DH, BQ, BK>;
+  using Tile = FlashTile<T, DK, DV, BQ, BK>;
   static bool smem_ok = false;
   const size_t smem = Tile::smem_bytes();
-  cudaError_t e = allow_smem(paged_partials_kernel<T, DH, BQ>, smem, &smem_ok);
+  cudaError_t e =
+      allow_smem(paged_partials_kernel<T, DK, DV, BQ>, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
   const int rows = Sq * (H / KV);
   dim3 grid((rows + BQ - 1) / BQ, n_splits, B * KV);
-  paged_partials_kernel<T, DH, BQ><<<grid, Tile::NT, smem, stream>>>(
+  paged_partials_kernel<T, DK, DV, BQ><<<grid, Tile::NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), tbl, qpos, kvv, m, l, acc, Sq, H, KV, ps, P,
-      pps, n_splits, 1.f / sqrtf((float)DH));
+      pps, n_splits, 1.f / sqrtf((float)DK));
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DH>
+template <typename T, int DK, int DV>
 int pick_bq(const void* q, const void* kp, const void* vp, const int* tbl,
             const int* qpos, const int* kvv, float* m, float* l, float* acc,
             int B, int Sq, int H, int KV, int ps, int P, int pps, int ns,
             cudaStream_t s) {
   // decode rows (Sq * G) rarely fill a 64-row tile: use 16-row blocks
   if (Sq * (H / KV) <= 16)
-    return launch<T, DH, 16>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq, H,
-                             KV, ps, P, pps, ns, s);
-  return launch<T, DH, 64>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq, H, KV,
-                           ps, P, pps, ns, s);
+    return launch<T, DK, DV, 16>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq,
+                                 H, KV, ps, P, pps, ns, s);
+  return launch<T, DK, DV, 64>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq, H,
+                               KV, ps, P, pps, ns, s);
 }
 
+// (dk, dv) pairs: dk = dv heads, and MLA's expanded window (192, 128).
 template <typename T>
-int dispatch_dh(int dh, const void* q, const void* kp, const void* vp,
+int dispatch_dh(int dk, int dv, const void* q, const void* kp, const void* vp,
                 const int* tbl, const int* qpos, const int* kvv, float* m,
                 float* l, float* acc, int B, int Sq, int H, int KV, int ps,
                 int P, int pps, int ns, cudaStream_t s) {
-  switch (dh) {
-    case 32: return pick_bq<T, 32>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq, H, KV, ps, P, pps, ns, s);
-    case 64: return pick_bq<T, 64>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq, H, KV, ps, P, pps, ns, s);
-    case 128: return pick_bq<T, 128>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq, H, KV, ps, P, pps, ns, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define PICK(DK_, DV_)                                                       \
+  if (dk == DK_ && dv == DV_)                                                \
+    return pick_bq<T, DK_, DV_>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq, \
+                                H, KV, ps, P, pps, ns, s);
+  PICK(32, 32)
+  PICK(64, 64)
+  PICK(128, 128)
+  PICK(192, 128)
+#undef PICK
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -159,7 +172,7 @@ int dispatch_dh(int dh, const void* q, const void* kp, const void* vp,
 extern "C" int paged_flash_decode_partials(
     const void* q, const void* k_pool, const void* v_pool, const void* tbl,
     const void* qpos, const void* kv_valid, void* m, void* l, void* acc, int B,
-    int Sq, int H, int KV, int dh, int ps, int P, int pages_per_split,
+    int Sq, int H, int KV, int dk, int dv, int ps, int P, int pages_per_split,
     int dtype, void* stream) {
   if (B == 0 || Sq == 0 || P == 0) return 0;
   if (ps % BK != 0 || pages_per_split < 1) return (int)cudaErrorInvalidValue;
@@ -172,11 +185,11 @@ extern "C" int paged_flash_decode_partials(
   float* lf = static_cast<float*>(l);
   float* af = static_cast<float*>(acc);
   if (dtype == 0)
-    return dispatch_dh<float>(dh, q, k_pool, v_pool, t, qp, kv, mf, lf, af, B,
-                              Sq, H, KV, ps, P, pages_per_split, ns, s);
+    return dispatch_dh<float>(dk, dv, q, k_pool, v_pool, t, qp, kv, mf, lf, af,
+                              B, Sq, H, KV, ps, P, pages_per_split, ns, s);
   if (dtype == 1)
-    return dispatch_dh<__nv_bfloat16>(dh, q, k_pool, v_pool, t, qp, kv, mf, lf,
-                                      af, B, Sq, H, KV, ps, P, pages_per_split,
-                                      ns, s);
+    return dispatch_dh<__nv_bfloat16>(dk, dv, q, k_pool, v_pool, t, qp, kv, mf,
+                                      lf, af, B, Sq, H, KV, ps, P,
+                                      pages_per_split, ns, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,19 @@
-"""Paged flash-decode partials: CUDA kernel, wrapper, plain version.
+"""Paged flash-decode partials: CUDA kernels, wrappers, plain versions.
 
-The counterpart of ``repro.kernels.paged_flash_decode`` (fp body only):
-the Pallas ``_gqa_page_kernel`` becomes ``csrc/paged_flash_decode.cu``
-(CUDA C++ for ``sm_90a``), built with nvcc and called through ctypes.
-The port runs it for every decode step and every resumed prefill chunk
-(:func:`repro_torch.models.attention.apply_attention`), followed by the
-reference's combine.
+The counterpart of ``repro.kernels.paged_flash_decode`` (fp bodies only),
+two kernels built with nvcc for ``sm_90a`` and called through ctypes:
+
+* the Pallas ``_gqa_page_kernel`` becomes ``csrc/paged_flash_decode.cu``
+  (:func:`paged_flash_decode_partials`).  The port runs it for every GQA
+  decode step and resumed prefill chunk (:func:`repro_torch.models.
+  attention.apply_attention`), and for MLA's resumed chunk on the window
+  expanded through W_UK/W_UV (dk 192, dv 128; :func:`repro_torch.models.
+  mla.apply_mla`);
+* the Pallas ``_mla_page_kernel`` becomes ``csrc/mla_paged_decode.cu``
+  (:func:`mla_paged_decode_partials`): MLA's absorbed decode against the
+  latent pool, with the partials kept in the compressed space.
+
+Both are followed by the reference's combine.
 
 The partials come per SPLIT of the logical page axis: split ``s`` covers
 pages ``[s*c, (s+1)*c)`` with ``c = pages_per_split``.  With ``c = 1``
@@ -16,7 +24,9 @@ walks each split's pages in order — the same reduction as the combine.
 
 :func:`paged_flash_decode_partials` takes the plain PyTorch version only
 for tensors on the CPU; for CUDA tensors it launches the kernel or
-raises.  Each launch adds one to the module's ``launches`` count.
+raises.  Each launch of the GQA kernel adds one to the module's
+``launches`` count, each launch of the MLA kernel one to
+``mla_launches``.
 """
 from __future__ import annotations
 
@@ -30,9 +40,14 @@ from repro_torch.models.common import paged_gather
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+# (dk, dv) pairs the GQA kernel is built for: equal widths, and MLA's
+# expanded window (nope 128 + rope 64, v 128)
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
+# (r, dr) the MLA kernel is built for: deepseek-v2's latent widths
+MLA_DIMS = ((512, 64),)
 
-launches = 0          # kernel launches (CUDA path only)
+launches = 0          # GQA kernel launches (CUDA path only)
+mla_launches = 0      # MLA kernel launches (CUDA path only)
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -47,14 +62,9 @@ def paged_flash_decode_partials_plain(k_pool, v_pool, q, tbl, qpos, kv_valid,
     live yields the exact identities (-1e30, 0, 0)."""
     b, sq, hq, dh = q.shape
     ps, kv = k_pool.shape[1], k_pool.shape[2]
-    p = tbl.shape[1]
     g = hq // kv
+    tbl, n_split = _pad_table(tbl, pages_per_split)
     c = pages_per_split
-    n_split = -(-p // c)
-    if n_split * c != p:                 # pad the table with unmapped pages
-        pad = torch.full((b, n_split * c - p), -1, dtype=tbl.dtype,
-                         device=tbl.device)
-        tbl = torch.cat([tbl, pad], dim=1)
     kw = paged_gather(k_pool, tbl).float()
     vw = paged_gather(v_pool, tbl)
     skv = kw.shape[1]
@@ -74,11 +84,25 @@ def paged_flash_decode_partials_plain(k_pool, v_pool, q, tbl, qpos, kv_valid,
     return m, l, acc
 
 
+def _pad_table(tbl, pages_per_split: int):
+    """The table padded with unmapped pages to whole splits, and the
+    number of splits."""
+    b, p = tbl.shape
+    n_split = -(-p // pages_per_split)
+    if n_split * pages_per_split != p:
+        pad = torch.full((b, n_split * pages_per_split - p), -1,
+                         dtype=tbl.dtype, device=tbl.device)
+        tbl = torch.cat([tbl, pad], dim=1)
+    return tbl, n_split
+
+
 def _check(k_pool, v_pool, q, tbl, qpos, kv_valid, pages_per_split):
-    if q.dim() != 4 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+    if q.dim() != 4 or k_pool.dim() != 4 or v_pool.dim() != 4 or \
+            v_pool.shape[:3] != k_pool.shape[:3]:
         raise ValueError(f"paged_flash_decode_partials: q {tuple(q.shape)}, "
                          f"pools {tuple(k_pool.shape)}/{tuple(v_pool.shape)}"
-                         ": want q (B, Sq, H, dh), pools (N, ps, KV, dh)")
+                         ": want q (B, Sq, H, dk), pools K (N, ps, KV, dk) "
+                         "and V (N, ps, KV, dv)")
     b, sq, hq, dh = q.shape
     kv = k_pool.shape[2]
     if k_pool.shape[3] != dh or hq % kv:
@@ -106,11 +130,12 @@ def _check(k_pool, v_pool, q, tbl, qpos, kv_valid, pages_per_split):
 
 def paged_flash_decode_partials(k_pool, v_pool, q, tbl, qpos, kv_valid, *,
                                 pages_per_split: int = 1) -> Partials:
-    """Flash partials of q (B, Sq, H, dh) against the pools (N, ps, KV,
-    dh) through the page table ``tbl`` (B, P) int32 (-1 = unmapped), for
-    query positions ``qpos`` (B, Sq) and filled-row bounds ``kv_valid``
-    (B,).  Returns float32 ``m``, ``l`` (B, Sq, KV, G, S) and ``acc``
-    (B, Sq, KV, G, S, dh) with S = ceil(P / pages_per_split)."""
+    """Flash partials of q (B, Sq, H, dk) against the pools K (N, ps, KV,
+    dk) and V (N, ps, KV, dv) through the page table ``tbl`` (B, P) int32
+    (-1 = unmapped), for query positions ``qpos`` (B, Sq) and filled-row
+    bounds ``kv_valid`` (B,); scores scaled by dk^-0.5.  Returns float32
+    ``m``, ``l`` (B, Sq, KV, G, S) and ``acc`` (B, Sq, KV, G, S, dv) with
+    S = ceil(P / pages_per_split)."""
     global launches
     _check(k_pool, v_pool, q, tbl, qpos, kv_valid, pages_per_split)
     if q.device.type == "cpu":
@@ -119,13 +144,13 @@ def paged_flash_decode_partials(k_pool, v_pool, q, tbl, qpos, kv_valid, *,
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode_partials: no kernel for "
                          f"{q.device}")
-    b, sq, hq, dh = q.shape
-    ps, kv = k_pool.shape[1], k_pool.shape[2]
+    b, sq, hq, dk = q.shape
+    ps, kv, dv = k_pool.shape[1], k_pool.shape[2], v_pool.shape[3]
     p = tbl.shape[1]
-    if dh not in HEAD_DIMS or ps % 16:
-        raise ValueError(f"paged_flash_decode_partials: head_dim {dh} not "
-                         f"in {HEAD_DIMS} or page_size {ps} not a multiple "
-                         "of 16")
+    if (dk, dv) not in HEAD_DIMS or ps % 16:
+        raise ValueError(f"paged_flash_decode_partials: (dk, dv) {(dk, dv)} "
+                         f"not in {HEAD_DIMS} or page_size {ps} not a "
+                         "multiple of 16")
     for t in (q, k_pool, v_pool, tbl, qpos, kv_valid):
         if not t.is_contiguous():
             raise ValueError("paged_flash_decode_partials: inputs must be "
@@ -134,14 +159,14 @@ def paged_flash_decode_partials(k_pool, v_pool, q, tbl, qpos, kv_valid, *,
     shape = (b, sq, kv, hq // kv, n_split)
     m = torch.empty(shape, dtype=torch.float32, device=q.device)
     l = torch.empty(shape, dtype=torch.float32, device=q.device)
-    acc = torch.empty(shape + (dh,), dtype=torch.float32, device=q.device)
+    acc = torch.empty(shape + (dv,), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         rc = lib.paged_flash_decode_partials(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             tbl.data_ptr(), qpos.data_ptr(), kv_valid.data_ptr(),
             m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-            b, sq, hq, kv, dh, ps, p, pages_per_split, DTYPES[q.dtype],
+            b, sq, hq, kv, dk, dv, ps, p, pages_per_split, DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "paged_flash_decode_partials")
     launches += 1
@@ -152,7 +177,134 @@ def _lib():
     lib = _build.load("paged_flash_decode")
     fn = lib.paged_flash_decode_partials
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + \
             [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# MLA: compressed-space partials against the (N, ps, r + dr) latent pool.
+# ---------------------------------------------------------------------------
+
+def mla_paged_decode_partials_plain(pool, q_c, q_rope, tbl, pos, r: int,
+                                    scale_dim: int,
+                                    pages_per_split: int = 1) -> Partials:
+    """Plain PyTorch version: the reference's ``_mla_window_partials`` on
+    a :func:`paged_gather` window, with the page axis cut into splits of
+    ``pages_per_split`` pages (1 = the reference's per-page partials).
+    Rows under a -1 entry and rows past the slot's position are masked
+    to exactly -1e30, so a split with nothing live (and every split of a
+    slot at position -1) yields the exact identities (-1e30, 0, 0)."""
+    b, sq, h, _ = q_c.shape
+    ps = pool.shape[1]
+    tbl, n_split = _pad_table(tbl, pages_per_split)
+    buf = paged_gather(pool, tbl).float()               # (B, W, r + dr)
+    c_all, kr_all = buf[..., :r], buf[..., r:]
+    sc = torch.einsum("bqhr,bsr->bqhs", q_c.float(), c_all)
+    sc = sc + torch.einsum("bqhd,bsd->bqhs", q_rope.float(), kr_all)
+    sc = sc * scale_dim ** -0.5
+    kpos = torch.arange(buf.shape[1], device=pool.device)
+    res = (tbl >= 0)[:, kpos // ps]                     # (B, W) mapped rows
+    mask = res & (kpos[None, :] <= pos[:, None])
+    sc = torch.where(mask[:, None, None, :], sc, NEG_INF)
+    scp = sc.reshape(b, sq, h, n_split, pages_per_split * ps)
+    m = scp.amax(dim=-1)                                # (B, Sq, H, S)
+    w = torch.where(scp <= NEG_INF / 2, 0.0, torch.exp(scp - m[..., None]))
+    l = w.sum(dim=-1)
+    cp = c_all.reshape(b, n_split, pages_per_split * ps, r)
+    acc = torch.einsum("bqhjs,bjsr->bqhjr", w.to(q_c.dtype).float(), cp)
+    return m, l, acc
+
+
+def _mla_check(pool, q_c, q_rope, tbl, pos, r, pages_per_split):
+    if pool.dim() != 3 or q_c.dim() != 4 or q_rope.dim() != 4 or \
+            q_rope.shape[:3] != q_c.shape[:3]:
+        raise ValueError(f"mla_paged_decode_partials: pool "
+                         f"{tuple(pool.shape)}, q_c {tuple(q_c.shape)}, "
+                         f"q_rope {tuple(q_rope.shape)}: want pool (N, ps, "
+                         "r + dr), q_c (B, Sq, H, r), q_rope (B, Sq, H, dr)")
+    if q_c.shape[3] != r or pool.shape[2] != r + q_rope.shape[3]:
+        raise ValueError(f"mla_paged_decode_partials: r {r}, q_c width "
+                         f"{q_c.shape[3]}, q_rope width {q_rope.shape[3]} "
+                         f"and pool width {pool.shape[2]} disagree")
+    b = q_c.shape[0]
+    if tbl.dim() != 2 or tbl.shape[0] != b or tuple(pos.shape) != (b,):
+        raise ValueError("mla_paged_decode_partials: want tbl (B, P), "
+                         "pos (B,)")
+    if not (pool.dtype == q_c.dtype == q_rope.dtype) or \
+            pool.dtype not in DTYPES:
+        raise TypeError(f"mla_paged_decode_partials: dtypes {pool.dtype}/"
+                        f"{q_c.dtype}/{q_rope.dtype}; want one of "
+                        f"{list(DTYPES)}")
+    for name, t in (("tbl", tbl), ("pos", pos)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"mla_paged_decode_partials: {name} must be "
+                            f"int32, got {t.dtype}")
+    if len({t.device for t in (pool, q_c, q_rope, tbl, pos)}) != 1:
+        raise ValueError("mla_paged_decode_partials: tensors on different "
+                         "devices")
+    if pages_per_split < 1:
+        raise ValueError(f"pages_per_split {pages_per_split} < 1")
+
+
+def mla_paged_decode_partials(pool, q_c, q_rope, tbl, pos, r: int,
+                              scale_dim: int, *,
+                              pages_per_split: int = 1) -> Partials:
+    """Compressed-space flash partials of MLA's absorbed queries ``q_c``
+    (B, Sq, H, r) and ``q_rope`` (B, Sq, H, dr) against the latent pool
+    (N, ps, r + dr) through the page table ``tbl`` (B, P) int32 (-1 =
+    unmapped), every query row of slot b attending rows <= ``pos[b]``
+    (B,) int32 (-1 = inactive slot); scores scaled by ``scale_dim``^-0.5
+    (the reference's nope + rope).  Returns float32 ``m``, ``l``
+    (B, Sq, H, S) and ``acc`` (B, Sq, H, S, r) with S = ceil(P /
+    pages_per_split)."""
+    global mla_launches
+    _mla_check(pool, q_c, q_rope, tbl, pos, r, pages_per_split)
+    if pool.device.type == "cpu":
+        return mla_paged_decode_partials_plain(pool, q_c, q_rope, tbl, pos,
+                                               r, scale_dim, pages_per_split)
+    if pool.device.type != "cuda":
+        raise ValueError(f"mla_paged_decode_partials: no kernel for "
+                         f"{pool.device}")
+    b, sq, h, _ = q_c.shape
+    ps, dr = pool.shape[1], q_rope.shape[3]
+    p = tbl.shape[1]
+    if (r, dr) not in MLA_DIMS or ps % 16:
+        raise ValueError(f"mla_paged_decode_partials: (r, dr) {(r, dr)} not "
+                         f"in {MLA_DIMS} or page_size {ps} not a multiple "
+                         "of 16")
+    for t in (pool, q_c, q_rope, tbl, pos):
+        if not t.is_contiguous():
+            raise ValueError("mla_paged_decode_partials: inputs must be "
+                             "contiguous")
+    if pool.data_ptr() % 16:
+        raise ValueError("mla_paged_decode_partials: the pool must be "
+                         "16-byte aligned (the kernel reads it in 16-byte "
+                         "vectors)")
+    n_split = -(-p // pages_per_split)
+    shape = (b, sq, h, n_split)
+    m = torch.empty(shape, dtype=torch.float32, device=pool.device)
+    l = torch.empty(shape, dtype=torch.float32, device=pool.device)
+    acc = torch.empty(shape + (r,), dtype=torch.float32, device=pool.device)
+    lib = _mla_lib()
+    with torch.cuda.device(pool.device):
+        rc = lib.mla_paged_decode_partials(
+            pool.data_ptr(), q_c.data_ptr(), q_rope.data_ptr(),
+            tbl.data_ptr(), pos.data_ptr(), m.data_ptr(), l.data_ptr(),
+            acc.data_ptr(), b, sq, h, r, dr, ps, p, pages_per_split,
+            float(scale_dim) ** -0.5, DTYPES[pool.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "mla_paged_decode_partials")
+    mla_launches += 1
+    return m, l, acc
+
+
+def _mla_lib():
+    lib = _build.load("mla_paged_decode")
+    fn = lib.mla_paged_decode_partials
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + \
+            [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

@@ -1,6 +1,7 @@
 """Where a serving tick's time goes on the card.
 
-Serves full-size qwen2.5-3b (bf16, random weights) with 8 requests of
+Serves a full-size model (bf16, random weights; qwen2.5-3b, or
+``--arch deepseek-v2-lite-dense`` for the MLA path) with 8 requests of
 700 prompt tokens, then times, without and with ``torch.profiler``:
 
   * the prefill ticks (three 256-token chunks per slot: one fresh wave,
@@ -14,6 +15,8 @@ tick, and the device ops that took the most time.  Needs one card.
 ``--quant`` packs the weights first (as the serving launcher does).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --ticks 8
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch deepseek-v2-lite-dense
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --quant w4a16
 """
 from __future__ import annotations

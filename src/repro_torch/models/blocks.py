@@ -1,11 +1,13 @@
-"""Residual blocks: the ``attn_mlp`` transformer block of the port.
+"""Residual blocks of the port: ``attn_mlp`` and ``mla_mlp``.
 
-The counterpart of ``repro.models.blocks`` for the dense GQA family:
-pre-norm attention, then a pre-norm SwiGLU (or GELU) MLP.  A block is an
-``nn.Module`` holding its weights in the reference's tree (``ln1``,
-``attn``, ``ln2``, ``ffn``), so the weight bridge maps leaves one to one:
-raw weights as frozen parameters, and the packed weights of a quantized
-model as :class:`~repro_torch.kernels.ops.PackedWeight` submodules.
+The counterpart of ``repro.models.blocks`` for the two dense block kinds:
+pre-norm attention (GQA, or MLA over the latent pool), then a pre-norm
+SwiGLU (or GELU) MLP.  A block is an ``nn.Module`` holding its weights in
+the reference's tree (``ln1``, ``attn``, ``ln2``, ``ffn``), so the weight
+bridge maps leaves one to one: raw weights as frozen parameters, and the
+packed weights of a quantized model as :class:`~repro_torch.kernels.ops.
+PackedWeight` submodules.  :data:`BLOCKS` maps a block kind to its specs,
+its paged cache spec and its module.
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.ops import PackedWeight
-from repro_torch.models.attention import apply_attention, attn_specs
+from repro_torch.models.attention import (apply_attention, attn_specs,
+                                          paged_kv_cache_spec)
+from repro_torch.models.mla import apply_mla, mla_specs, paged_mla_cache_spec
 from repro_torch.models.common import ParamSpec, dense, layer_norm, rms_norm
 
 
@@ -96,6 +100,8 @@ class AttnMlpBlock(nn.Module):
     """One ``attn_mlp`` block; ``leaves`` is its tree of tensors in the
     layout :func:`attn_mlp_specs` declares."""
 
+    attend = staticmethod(apply_attention)
+
     def __init__(self, cfg, leaves: Dict[str, Dict[str, torch.Tensor]]):
         super().__init__()
         self.cfg = cfg
@@ -109,10 +115,31 @@ class AttnMlpBlock(nn.Module):
                 for name in ("ln1", "attn", "ln2", "ffn")}
 
     def forward(self, x, cache, mode, pos, pages, offset):
-        a, cache = apply_attention(
+        a, cache = self.attend(
             self.attn, apply_norm(self.ln1, x, self.cfg), self.cfg,
             cache=cache, mode=mode, pos=pos, pages=pages, offset=offset)
         x = x + a
         x = x + apply_mlp(self.ffn, apply_norm(self.ln2, x, self.cfg),
                           self.cfg)
         return x, cache
+
+
+def mla_mlp_specs(cfg) -> dict:
+    return {"ln1": norm_specs(cfg), "attn": mla_specs(cfg),
+            "ln2": norm_specs(cfg), "ffn": mlp_specs(cfg)}
+
+
+class MlaMlpBlock(AttnMlpBlock):
+    """One ``mla_mlp`` block (the reference's ``_mla_block_specs`` /
+    ``_apply_mla_block`` with a dense MLP): MLA attention over the latent
+    pool, then the same MLP; ``leaves`` in the layout of
+    :func:`mla_mlp_specs`."""
+
+    attend = staticmethod(apply_mla)
+
+
+# block kind -> (param specs, paged cache spec, module)
+BLOCKS = {
+    "attn_mlp": (attn_mlp_specs, paged_kv_cache_spec, AttnMlpBlock),
+    "mla_mlp": (mla_mlp_specs, paged_mla_cache_spec, MlaMlpBlock),
+}

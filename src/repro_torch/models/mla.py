@@ -1,0 +1,196 @@
+"""Multi-head Latent Attention (DeepSeek-V2) over the paged latent pool.
+
+The counterpart of ``repro.models.mla`` for paged fp serving on one
+device.  The cache keeps one latent row per token and layer, the
+normalised ``c_kv`` (kv_lora_rank wide) followed by the roped ``k_rope``
+(qk_rope_dim wide): 576 values at deepseek-v2's widths, against 2 * H *
+dh = 4096 for full K/V.  Three modes, each on a hand-written kernel:
+
+  * a FRESH chunk (mode='chunk', no offset) runs the naive (expanded)
+    form: k_nope and v come up through W_UK / W_UV, the roped k_rope is
+    broadcast over heads, and the causal flash kernel attends with q/k
+    width nope + rope and v width v_head_dim; then the chunk's latent rows
+    go into the pool;
+  * a RESUMED chunk (mode='chunk' with offset) scatters its latent rows
+    first, expands the slot's whole cached window through W_UK / W_UV,
+    and attends it with the paged flash-decode kernel: the expanded
+    window is viewed as a pool of one page per (slot, logical page), and
+    the table maps the slot's mapped pages onto it;
+  * a DECODE step scatters its latent row, absorbs W_UK into the query
+    (``q_c``) and runs the compressed-space MLA kernel against the latent
+    pool itself; W_UV is applied to the combined context afterwards.
+
+The small absorbed einsums and every projection stay ``torch`` matmuls,
+as the reference leaves them to XLA outside its kernels.  The pool is
+written in place.  The reference's contiguous 'prefill'/'train' modes
+and quantized latent pools are not in this slice and raise, naming the
+ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_flash_decode import mla_paged_decode_partials
+from repro_torch.models.attention import (_combine_page_partials,
+                                          _page_partials, _pages_per_split)
+from repro_torch.models.common import (ParamSpec, broadcast_offset,
+                                       chunk_lengths, chunk_valid_mask, dense,
+                                       paged_gather, paged_scatter, rms_norm,
+                                       rope)
+
+
+def mla_dims(cfg):
+    return cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+
+
+def mla_specs(cfg) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    r = cfg.kv_lora_rank
+    dn, dr, dv = mla_dims(cfg)
+    return {
+        "w_q": ParamSpec((d, h * (dn + dr)), quantize=True),
+        "w_dkv": ParamSpec((d, r + dr), quantize=True),
+        "kv_norm": ParamSpec((r,), init="ones", dtype=torch.float32),
+        "w_uk": ParamSpec((r, h * dn), quantize=True),
+        "w_uv": ParamSpec((r, h * dv), quantize=True),
+        "w_o": ParamSpec((h * dv, d), quantize=True),
+    }
+
+
+def paged_mla_cache_spec(cfg, num_pages: int, page_size: int,
+                         kv_format: str = "fp") -> dict:
+    """One (num_pages, page_size, r + dr) latent pool per layer, shared by
+    every slot and mapped through the engine's per-slot page table."""
+    if kv_format != "fp":
+        raise ValueError(f"{cfg.name}: kv_format {kv_format!r}: the "
+                         "quantized latent pool is not in this slice of the "
+                         "port (ROADMAP queue 1 item 10)")
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    return {"ckv": ParamSpec((num_pages, page_size, r + dr), init="zeros")}
+
+
+def _compress(p, x, cfg):
+    """x -> (c_kv normalised (B, S, r), k_rope before RoPE (B, S, dr))."""
+    r = cfg.kv_lora_rank
+    ckv_full = dense(x, p["w_dkv"], cfg.quant)
+    c_kv, k_r = ckv_full[..., :r], ckv_full[..., r:]
+    return rms_norm(c_kv, p["kv_norm"]), k_r
+
+
+def _expand(p, c, k_rope, cfg):
+    """Latent rows -> the naive form's keys (B, S, H, dn + dr), k_rope
+    broadcast over heads, and values (B, S, H, dv)."""
+    b, s = c.shape[:2]
+    h = cfg.n_heads
+    dn, dr, dv = mla_dims(cfg)
+    k_nope = dense(c, p["w_uk"], cfg.quant).reshape(b, s, h, dn)
+    v = dense(c, p["w_uv"], cfg.quant).reshape(b, s, h, dv)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+    return k.contiguous(), v.contiguous()
+
+
+def _resume(p, qq, cache, pages, entry, t, ok, off_b, len_b, cfg):
+    """Resumed chunk: scatter the chunk's latent rows, expand the slot's
+    cached window (history and this chunk) through W_UK / W_UV, and
+    attend it with absolute causal masking through the paged kernel."""
+    b, s = qq.shape[:2]
+    r = cfg.kv_lora_rank
+    pool = paged_scatter(cache["ckv"], pages, entry, t, ok)
+    buf = paged_gather(pool, pages)                     # (B, P*ps, r + dr)
+    k_w, v_w = _expand(p, buf[..., :r], buf[..., r:], cfg)
+    n_pg, ps = pages.shape[1], pool.shape[1]
+    # the expanded window as pools of B*P pages, page b*P + j holding
+    # logical page j of slot b; unmapped pages stay unmapped
+    k_pool = k_w.reshape(b * n_pg, ps, *k_w.shape[2:])
+    v_pool = v_w.reshape(b * n_pg, ps, *v_w.shape[2:])
+    own = torch.arange(b * n_pg, dtype=torch.int32,
+                       device=pages.device).reshape(b, n_pg)
+    tbl = torch.where(pages >= 0, own, -1).to(torch.int32)
+    qpos = (off_b[:, None] + torch.arange(s, dtype=torch.int32,
+                                          device=qq.device)[None, :])
+    m, l, acc = _page_partials(qq, k_pool, v_pool, tbl, qpos.contiguous(),
+                               (off_b + len_b).contiguous())
+    o = _combine_page_partials(m, l, acc)
+    return o.reshape(b, s, cfg.n_heads, -1).to(qq.dtype)
+
+
+def _decode(p, q_nope, q_rope, cache, pages, entry, pos_b, x_dtype, cfg):
+    """Decode: scatter the latent row at ``pos`` (-1 = no write), absorb
+    W_UK into the query, attend the latent pool in the compressed space
+    with the MLA kernel, combine, and apply W_UV.  Returns (B, 1, H, dv)
+    in the activation type."""
+    b, s, h, _ = q_nope.shape
+    r = cfg.kv_lora_rank
+    dn, dr, dv = mla_dims(cfg)
+    pool = paged_scatter(cache["ckv"], pages, entry, pos_b[:, None],
+                         (pos_b >= 0)[:, None])
+    w_uk = p["w_uk"].reshape(r, h, dn)
+    q_c = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_uk.float())
+    c = _pages_per_split(b, s, h, pages.shape[1], r)
+    m, l, acc = mla_paged_decode_partials(
+        pool, q_c.to(x_dtype).contiguous(), q_rope.contiguous(), pages,
+        pos_b, r, dn + dr, pages_per_split=c)
+    ctx_c = _combine_page_partials(m, l, acc)           # (B, 1, H, r) f32
+    w_uv = p["w_uv"].reshape(r, h, dv)
+    return torch.einsum("bqhr,rhv->bqhv", ctx_c, w_uv.float()).to(x_dtype)
+
+
+def apply_mla(p, x: torch.Tensor, cfg, *, cache: dict, mode: str, pos,
+              pages: torch.Tensor, offset: Optional[torch.Tensor] = None,
+              ) -> Tuple[torch.Tensor, dict]:
+    """MLA sublayer over the paged latent pool ``cache`` = {"ckv": (N, ps,
+    r + dr)}, updated in place and returned.
+
+    mode 'chunk': ``pos`` is the (B,) valid length of a right-padded chunk
+    (0 = inactive slot); without ``offset`` its tokens sit at rows [0,
+    len), with a (B,) ``offset`` at [offset, offset + len).  mode
+    'decode': ``pos`` is the (B,) row of each slot's token (-1 = inactive
+    slot).  ``pages``: (B, P) int32 page table."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = mla_dims(cfg)
+    dev = x.device
+    ar = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+    if mode == "chunk":
+        len_b = chunk_lengths(pos, b, dev)
+        ok = chunk_valid_mask(len_b, s)
+        off_b = (torch.zeros((b,), dtype=torch.int32, device=dev)
+                 if offset is None else broadcast_offset(offset, b, dev))
+        positions = off_b[:, None] + ar
+    elif mode == "decode":
+        if s != 1:
+            raise ValueError(f"mode='decode' takes one token per slot, "
+                             f"got {s}")
+        pos_b = broadcast_offset(pos, b, dev)
+        positions = torch.clamp(pos_b[:, None] + ar, min=0)
+    else:
+        raise ValueError(f"mode {mode!r}: this slice of the port serves "
+                         "'chunk' and 'decode' (ROADMAP queue 1 item 6)")
+
+    q = dense(x, p["w_q"], cfg.quant).reshape(b, s, h, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = rope(q[..., dn:], positions, cfg.rope_theta)
+    c_kv, k_r = _compress(p, x, cfg)
+    k_rope = rope(k_r[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    entry = torch.cat([c_kv, k_rope], dim=-1)           # (B, S, r + dr)
+
+    if mode == "chunk" and offset is None:
+        # fresh chunk: naive form over the chunk's own rows (padded
+        # queries sit after every valid token, so they never leak into
+        # valid outputs), then the valid latent rows go into the pool
+        k, v = _expand(p, c_kv, k_rope, cfg)
+        qq = torch.cat([q_nope, q_rope], dim=-1).contiguous()
+        o = flash_attention(qq, k, v, kv_valid=s)
+        paged_scatter(cache["ckv"], pages, entry, positions, ok)
+    elif mode == "chunk":
+        qq = torch.cat([q_nope, q_rope], dim=-1).contiguous()
+        o = _resume(p, qq, cache, pages, entry, positions, ok, off_b, len_b,
+                    cfg)
+    else:
+        o = _decode(p, q_nope, q_rope, cache, pages, entry, pos_b, x.dtype,
+                    cfg)
+    y = dense(o.reshape(b, s, h * dv), p["w_o"], cfg.quant)
+    return y, cache

@@ -2,14 +2,16 @@
 
 The counterpart of ``repro.models.model`` for the paged serving path.
 The reference scans stacked parameters with ``lax.scan``; the port keeps
-one :class:`~repro_torch.models.blocks.AttnMlpBlock` per layer in an
-``nn.ModuleList`` and loops over it.  Only ``attn_mlp`` scan patterns are
-in this slice; other block kinds raise.
+one block module per layer (:data:`~repro_torch.models.blocks.BLOCKS`) in
+an ``nn.ModuleList`` and loops over it.  The port serves a single scan of
+``attn_mlp`` (GQA) or ``mla_mlp`` (MLA) blocks; other block programs
+raise.
 
-The paged cache keeps the reference's layout, one pool per stage with
-leaves (layers, num_pages, page_size, KV, dh) and the page axis at 1, so
-later swap and wire slices move the same bytes.  ``forward`` updates the
-pools in place.
+The paged cache keeps the reference's layout, one pool per stage with the
+page axis at 1: leaves ``k``/``v`` (layers, num_pages, page_size, KV, dh)
+for GQA, ``ckv`` (layers, num_pages, page_size, r + dr) for MLA, so later
+swap and wire slices move the same bytes.  ``forward`` updates the pools
+in place.
 
   mode='chunk'  — chunked prefill: ``pos`` is the (B,) valid length of a
                   right-padded chunk (0 = inactive slot); with ``offset``
@@ -30,31 +32,38 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.ops import PackedWeight, prepare_weight
-from repro_torch.models.attention import paged_kv_cache_spec
-from repro_torch.models.blocks import (AttnMlpBlock, apply_norm,
-                                       attn_mlp_specs, norm_specs)
+from repro_torch.models.blocks import BLOCKS, apply_norm, norm_specs
 from repro_torch.models.common import (ParamSpec, dense, embed_lookup,
                                        materialize, require_device)
 from repro_torch.models.config import ArchConfig
 
 
+def _block_kind(cfg: ArchConfig) -> str:
+    """Block kind of a single scan of ``attn_mlp`` or ``mla_mlp`` — the
+    block programs the port runs."""
+    kind = cfg.pattern[0][1] if len(cfg.pattern) == 1 and \
+        cfg.pattern[0][0] == "scan" else None
+    if kind in BLOCKS and cfg.input_mode == "tokens":
+        return kind
+    moe = any(e[0] == "scan" and e[1].endswith("_moe") for e in cfg.pattern)
+    raise ValueError(
+        f"{cfg.name}: pattern {cfg.pattern} (input {cfg.input_mode}) is not "
+        "in this slice of the port, which serves one token-input scan of "
+        f"{' or '.join(BLOCKS)} blocks (ROADMAP queue 1 "
+        f"{'item 12, MoE' if moe else 'items 8-13'})")
+
+
 def _n_layers(cfg: ArchConfig) -> int:
-    """Block count of a single ``attn_mlp`` scan — the only block program
-    this slice runs."""
-    if cfg.input_mode != "tokens" or len(cfg.pattern) != 1 or \
-            cfg.pattern[0][0] != "scan" or cfg.pattern[0][1] != "attn_mlp":
-        raise ValueError(
-            f"{cfg.name}: pattern {cfg.pattern} (input {cfg.input_mode}) is "
-            "not in this slice of the port, which serves token-input "
-            "attn_mlp stacks (ROADMAP queue 1 items 8-13)")
+    _block_kind(cfg)
     return cfg.pattern[0][2]
 
 
 def param_specs(cfg: ArchConfig) -> dict:
     d, vp = cfg.d_model, cfg.padded_vocab
+    block_specs = BLOCKS[_block_kind(cfg)][0]
     return {
         "embed": ParamSpec((vp, d), init="embed", scale=0.02),
-        "blocks": [attn_mlp_specs(cfg) for _ in range(_n_layers(cfg))],
+        "blocks": [block_specs(cfg) for _ in range(_n_layers(cfg))],
         "final_norm": norm_specs(cfg),
         "lm_head": ParamSpec((d, vp), scale=0.02, quantize=True),
     }
@@ -63,9 +72,9 @@ def param_specs(cfg: ArchConfig) -> dict:
 def cache_specs(cfg: ArchConfig, num_pages: int, page_size: int) -> list:
     """Paged cache spec: one stage of stacked (layers, ...) pools."""
     n = _n_layers(cfg)
+    pool_spec = BLOCKS[_block_kind(cfg)][1]
     return [{name: ParamSpec((n,) + s.shape, init=s.init)
-             for name, s in paged_kv_cache_spec(cfg, num_pages,
-                                                page_size).items()}]
+             for name, s in pool_spec(cfg, num_pages, page_size).items()}]
 
 
 class Transformer(nn.Module):
@@ -77,8 +86,8 @@ class Transformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Parameter(leaves["embed"], requires_grad=False)
-        self.blocks = nn.ModuleList(AttnMlpBlock(cfg, b)
-                                    for b in leaves["blocks"])
+        block = BLOCKS[_block_kind(cfg)][2]
+        self.blocks = nn.ModuleList(block(cfg, b) for b in leaves["blocks"])
         self.final_norm = nn.ParameterDict(
             {k: nn.Parameter(v, requires_grad=False)
              for k, v in leaves["final_norm"].items()})
@@ -109,7 +118,7 @@ def forward(params: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
     x = embed_lookup(params.embed, inputs)
     stage = cache[0]
     for i, block in enumerate(params.blocks):
-        layer = {"k": stage["k"][i], "v": stage["v"][i]}
+        layer = {name: pool[i] for name, pool in stage.items()}
         x, _ = block(x, layer, mode, pos, pages, offset)
     x = apply_norm(params.final_norm, x, cfg)
     logits = dense(x, params.lm_head, cfg.quant)
@@ -140,8 +149,8 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 
 def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int, *,
                      device="cuda") -> List[Dict[str, torch.Tensor]]:
-    """Zeroed paged cache: per stage, (layers, num_pages, page_size, KV,
-    dh) pools of the model's dtype."""
+    """Zeroed paged cache: per stage, (layers, num_pages, page_size, ...)
+    pools of the model's dtype (``cache_specs``)."""
     dev = require_device(device)
     return _materialize_tree(cache_specs(cfg, num_pages, page_size), None,
                              cfg.dtype, dev)
@@ -174,6 +183,11 @@ def quantize_for_serving(cfg: ArchConfig,
     if cfg.quant is None or cfg.quant.mode not in ("int", "wo"):
         raise ValueError("quantize_for_serving needs an int/wo QuantConfig "
                          f"on cfg.quant, got {cfg.quant}")
+    if _block_kind(cfg) == "mla_mlp":
+        # MLA decode absorbs W_UK / W_UV into einsums on the raw weights
+        raise NotImplementedError(
+            f"{cfg.name}: packed MLA weights are not in this slice of the "
+            "port (ROADMAP queue 1 item 11)")
     specs = param_specs(cfg)
     packed = _map_specs(
         specs, params.tree(),

@@ -22,7 +22,9 @@ only on its own offset.
 
 Every attention dispatch runs a CUDA kernel on the card: the flash
 forward for a fresh wave, the paged flash-decode partials for a resumed
-wave and for decode.  A model packed by ``quantize_for_serving`` (the
+wave and for GQA decode, and the compressed-space MLA partials for MLA
+decode.  The engine is the same for both attention kinds: it treats the
+pool leaves (``k``/``v`` or MLA's ``ckv``) alike.  A model packed by ``quantize_for_serving`` (the
 format on ``cfg.quant``) also runs every ``dense`` through the packed
 matmul kernels.  ``stats()`` reports the kernel launches of the last
 dispatch and in total.
@@ -55,8 +57,8 @@ _DEFER = "defer"                    # admission verdict: retry after frees
 
 
 def _kernel_launches() -> int:
-    return (_flash.launches + _paged.launches + _mpq.launches
-            + _mpq.reduce_launches)
+    return (_flash.launches + _paged.launches + _paged.mla_launches
+            + _mpq.launches + _mpq.reduce_launches)
 
 
 class RequestHandle:

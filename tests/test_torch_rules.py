@@ -13,8 +13,11 @@ from repro_torch.configs import get_config, reduce_config
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mpq_matmul as mm
+from repro_torch.kernels import paged_flash_decode as pfd
 from repro_torch.launch import serve as launcher
-from repro_torch.models.model import init_paged_cache, init_params
+from repro_torch.models.mla import paged_mla_cache_spec
+from repro_torch.models.model import (init_paged_cache, init_params,
+                                      quantize_for_serving)
 from repro_torch.serve import Request, ServeConfig, ServingEngine
 from repro_torch.weights import from_jax_numpy
 
@@ -163,3 +166,60 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
                          text=True, timeout=120, cwd=tmp_path)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+# -- MLA ----------------------------------------------------------------------
+
+def test_real_deepseek_v2_lite_raises_naming_the_moe_item():
+    """deepseek-v2-lite-16b's layers 1-26 are mla_moe blocks: MoE is not
+    ported, so the published config is refused by name (the port serves
+    its dense-block variant, deepseek-v2-lite-dense)."""
+    cfg = reduce_config(get_config("deepseek-v2-lite-16b"))
+    with pytest.raises(ValueError,
+                       match=r"mla_moe.*ROADMAP queue 1 item 12, MoE"):
+        init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match=r"ROADMAP queue 1 item 12"):
+        init_paged_cache(cfg, 4, 16, device="cpu")
+
+
+def test_packed_mla_weights_are_rejected():
+    cfg = reduce_config(get_config("deepseek-v2-lite-dense"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cfg = cfg.with_(quant=launcher.parse_quant("w4a16"))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 11"):
+        quantize_for_serving(cfg, params)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_quantized_latent_pool_is_rejected(fmt):
+    cfg = reduce_config(get_config("deepseek-v2-lite-dense"))
+    with pytest.raises(ValueError, match=r"ROADMAP queue 1 item 10"):
+        paged_mla_cache_spec(cfg, 4, 16, kv_format=fmt)
+    with pytest.raises(ValueError, match=r"ServeConfig\.kv_format .*item 10"):
+        ServeConfig(kv_format=fmt)
+
+
+def _mla_operands(device, dtype=torch.float32):
+    pool = torch.zeros(4, 16, 576, dtype=dtype, device=device)
+    q_c = torch.zeros(2, 1, 16, 512, dtype=dtype, device=device)
+    q_r = torch.zeros(2, 1, 16, 64, dtype=dtype, device=device)
+    tbl = torch.zeros(2, 2, dtype=torch.int32, device=device)
+    pos = torch.zeros(2, dtype=torch.int32, device=device)
+    return pool, q_c, q_r, tbl, pos
+
+
+def test_mla_partials_on_the_cpu_never_touch_the_build(monkeypatch):
+    def no_build(*a, **k):
+        raise AssertionError("the build was reached from a CPU tensor")
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(_build, "build_all", no_build)
+    before = pfd.mla_launches
+    m, l, acc = pfd.mla_paged_decode_partials(*_mla_operands("cpu"), 512,
+                                              192)
+    assert tuple(acc.shape) == (2, 1, 16, 2, 512)
+    assert pfd.mla_launches == before
+
+
+def test_mla_partials_have_no_fallback_off_the_cpu():
+    with pytest.raises(ValueError, match="no kernel"):
+        pfd.mla_paged_decode_partials(*_mla_operands("meta"), 512, 192)
