@@ -60,18 +60,46 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   9. a 2-layer float32 deepseek-v2-lite-dense at full width through the
      engine: its greedy tokens must equal the plain forward's.
 
+  10. serve qwen2.5-3b (phase-3 traffic, the phase-3 weights) and
+      deepseek-v2-lite-dense (phase-8 traffic and weights) at full depth
+      on int8 and on int4 KV pools (``ServeConfig.kv_format``).  Every
+      dispatch is logged with its launches: on a quantized GQA pool every
+      fresh, resumed and decode dispatch launches the quantized paged
+      kernel 36 times and nothing else (a fresh chunk runs as a resume at
+      offset 0, never through the flash kernel); on a quantized latent
+      pool a fresh or resumed wave launches the fp paged kernel (192/128)
+      27 times and a decode step the quantized MLA kernel 27 times.  The
+      pool's bytes (``pool_bytes_per_shard()``) are printed beside the
+      bf16 pool's and held to POOL_RATIO_LIMIT.  Every request's
+      teacher-forced logits are held against a plain contiguous forward
+      that quantizes and dequantizes each K/V (or latent) row as the
+      pool stores it, within SERVE_KV_NOISE_FACTOR times a kernel-free
+      noise floor (and the fp path's bound); the same engine with a
+      planted fault (each row's scale rolled by one within its page,
+      handed to the kernel), serving requests 0 and 8, must land outside;
+  11. a 2-layer float32 version of each model at int4 through the
+      engine: greedy tokens equal the plain forward's, but at a printed
+      near-tie under phase 7's per-position rule.
+
 Phase 2 also holds the MLA path's kernels (phase 2b): the flash forward
 at q/k 192 / v 128 on a fresh 256-token chunk (KV = H = 16), the paged
 partials at the same widths on a resumed chunk's expanded window, and
 the compressed-space MLA partials at B 8, H 16, r 512, dr 64, page 16,
 P in {64, 128, 256} pages a slot, with a hole, a page past its slot's
 position and an inactive slot, in bf16 and float32; and at P 128 again
-with 2 and 3 pages a split, and at page size 32 with 1 and 2.
+with 2 and 3 pages a split, and at page size 32 with 1 and 2.  Phase 2c
+holds the quantized kernels, at int8 and int4, bf16 and float32: the
+quantized paged partials at qwen2.5-3b's widths (P 128) at decode and on
+a resumed 256-row chunk, at the engine's split and at 1, 2 and 3 pages a
+split; the quantized MLA partials at B 8, H 16, r 512, dr 64, P 128 with
+1, 2 and 3 pages a split and at page 32 with 1 and 2; every case with a
+hole, a page past its slot's position and an inactive slot, whose splits
+must be the exact identities.  The engine's choices are timed in bf16.
 
 The second-to-last line is a JSON object listing the ported kernels; the
 last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
-``--kernels-only`` stops after the kernel checks (phases 1, 2, 2b and
-5).
+``--kernels-only`` stops after the kernel checks (phases 1, 2, 2b, 2c
+and 5).
 """
 from __future__ import annotations
 
@@ -97,6 +125,14 @@ PAGED_TOL_F32 = 1e-4
 # means of pool rows of magnitude ~1
 MLA_TOL_BF16 = 2e-2
 MLA_TOL_F32 = 1e-4                  # summation order only
+# the quantized kernels (phase 2c) dequantize each element exactly as
+# their plain versions do (one float32 multiply by the row scale, one
+# rounding to the query type) and then run the fp kernels' score and
+# softmax code: the fp kernels' tolerances carry over.  At one page a
+# split the quantized MLA kernel is expected bitwise equal to its plain
+# version, as the fp one was (PERF.md's kernel table, row 4)
+QPAGED_TOL_BF16, QPAGED_TOL_F32 = PAGED_TOL_BF16, PAGED_TOL_F32
+QMLA_TOL_BF16, QMLA_TOL_F32 = MLA_TOL_BF16, MLA_TOL_F32
 # teacher-forced logits of the 27-layer bf16 deepseek-v2-lite-dense engine
 # against the plain naive-form forward, as a share of the row's largest
 # |logit|.  The engine computes decode in the absorbed form (q_c = q_nope
@@ -123,6 +159,23 @@ SERVE_REL_TOL_BF16 = 5e-2
 # their geometric mean.
 SERVE_INT_NOISE_FACTOR = 1.5
 SERVE_REL_TOL_F32 = 1e-5            # float32 summation order only
+# quantized KV pools (phase 10): teacher-forced logits against the plain
+# forward that quantizes and dequantizes each K/V (or latent) row as the
+# pool stores it, held to this multiple of a noise floor no port kernel
+# enters (that forward against itself with widened attention), and at
+# least the fp path's own bound.  The engine's rows are computed in other
+# GEMM shapes than the plain forward's, and a rounding difference in a
+# row can move one of its integers a whole step, as at w8a8; the integer
+# formats' factor was kept, stated before the first run.  It lies
+# between two readings on an H100 (PERF.md): the sound engine's largest
+# error over its floor, 1.18 (qwen2.5-3b int4), and the smallest the
+# planted fault reaches, 2.19 (MLA int4; every row's scale rolled by one
+# within its page, handed to the kernel), which must land outside the
+# bound in every run.
+SERVE_KV_NOISE_FACTOR = 1.5
+# pool bytes of a quantized format over the bf16 pool's: int8 moves K/V
+# rows to 1 byte an element (+4 bytes of scale a row), int4 to half
+POOL_RATIO_LIMIT = {"int8": 0.51, "int4": 0.26}
 # faults planted in the plain integer path that the bound above must
 # reject in every run: one activation scale per call instead of one per
 # row, and the activation scale left out of the epilogue
@@ -390,6 +443,190 @@ def check_mla(torch, timer, dtype, P, B=8, H=16, r=512, dr=64, ps=16,
     rec["live_rows"] = live
     rec["partials_bytes"] = B * H * n_split * (2 + r) * 4
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 2c: the quantized paged kernels against their plain versions.
+# ---------------------------------------------------------------------------
+
+def quant_gqa_case(torch, dtype, fmt, Sq, B=8, H=16, KV=2, dh=128, ps=16,
+                   P=128, seed=0):
+    """Quantized K/V pools (quantized on the card by the port's
+    ``PageFormat``) at qwen2.5-3b's widths, with the odd cases: slot 0
+    has a hole mid-table, slot 1 maps one page past its filled rows, the
+    last slot is inactive (position -1, nothing filled, its pages still
+    mapped); the others' fills spread over the table."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    n = B * P
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kf, vf = (torch.randn((n, ps, KV, dh), generator=g, device="cuda")
+              .to(dtype) for _ in range(2))
+    kq, ks = fmt.quantize_rows(kf)
+    vq, vs = fmt.quantize_rows(vf)
+    q = torch.randn((B, Sq, H, dh), generator=g, device="cuda").to(dtype)
+    fill = np.linspace(Sq + 24, P * ps - 8, B).astype(np.int64)
+    tbl = np.full((B, P), -1, np.int32)
+    perm = rng.permutation(n)
+    k = 0
+    for b in range(B):
+        m = min(-(-int(fill[b]) // ps) + (b == 1), P)
+        tbl[b, :m] = perm[k:k + m]
+        k += m
+    tbl[0, 1] = -1                                   # a hole
+    qpos = (fill[:, None] - Sq + np.arange(Sq)[None, :]).astype(np.int32)
+    qpos[-1] = -1                                    # the inactive slot
+    fill[-1] = 0
+    as_t = lambda a: torch.from_numpy(a).to("cuda")  # noqa: E731
+    return (kq, vq, ks, vs, q, as_t(tbl), as_t(qpos),
+            as_t(fill.astype(np.int32)), tbl, qpos, fill)
+
+
+def check_paged_quant(torch, timer, dtype, fmt, Sq, c=None, timed=False):
+    """The quantized GQA kernel at qwen2.5-3b's shapes, P 128 pages a
+    slot; ``c`` pages a split (default: the engine's choice)."""
+    import numpy as np
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.models.attention import (_combine_page_partials,
+                                              _pages_per_split)
+    B, H, KV, dh, ps, P = 8, 16, 2, 128, 16, 128
+    kq, vq, ks, vs, q, tbl, qpos, kvv, tbl_np, qpos_np, fill = \
+        quant_gqa_case(torch, dtype, fmt, Sq, seed=40 + Sq)
+    if c is None:
+        c = _pages_per_split(B, Sq, H, P, dh)
+    kw = dict(k_scale=ks, v_scale=vs, bits=fmt.bits)
+    run = lambda: pfd.paged_flash_decode_partials(  # noqa: E731
+        kq, vq, q, tbl, qpos, kvv, pages_per_split=c, **kw)
+    plain = lambda: pfd.paged_flash_decode_partials_plain(  # noqa: E731
+        kq, vq, q, tbl, qpos, kvv, c, **kw)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    name = f"quant paged partials {fmt.name} Sq={Sq} c={c} {dtype}"
+    skipped = want[0] <= -1e30
+    if not (bool(skipped[-1].all()) and bool((got[0][skipped] == -1e30).all())
+            and bool((got[1][skipped] == 0).all())
+            and bool((got[2][skipped] == 0).all())):
+        fail(f"{name}: skipped splits are not the exact identities "
+             "(-1e30, 0, 0)")
+    err = (_combine_page_partials(*got) - _combine_page_partials(*want)) \
+        .abs().max().item()
+    tol = QPAGED_TOL_BF16 if dtype == torch.bfloat16 else QPAGED_TOL_F32
+    if not err <= tol:
+        fail(f"{name}: max |kernel - plain| {err} > {tol}")
+    rec = {"name": "paged_flash_decode_partials_quant", "dtype": str(dtype),
+           "format": fmt.name,
+           "shapes": {"q": [B, Sq, H, dh], "pool": list(kq.shape),
+                      "tbl": [B, P], "pages_per_split": c},
+           "max_abs_err": err, "tol": tol,
+           "bitwise": bool(all(torch.equal(a, b) for a, b in zip(got, want)))}
+    if not timed:
+        return rec
+    rec["kernel_ms"] = timer.ms(run)
+    rec["plain_ms"] = timer.ms(plain)
+    rec["library_ms"] = None
+    # the pages the kernel reads: mapped, below the fill, not after the
+    # slot's last query; pairs are the live (query, key) products
+    live_pages = [(b, j) for b in range(B) for j in range(P)
+                  if tbl_np[b, j] >= 0 and j * ps < fill[b]
+                  and j * ps <= qpos_np[b].max()]
+    live_rows = len(live_pages) * ps
+    mapped = np.repeat(tbl_np >= 0, ps, axis=1)              # (B, P*ps)
+    kpos = np.arange(P * ps)
+    pairs = int(sum(((kpos[None, :] <= qpos_np[b][:, None])
+                     & (kpos[None, :] < fill[b]) & mapped[b][None, :]).sum()
+                    for b in range(B)))
+    n_split = -(-P // c)
+    nbytes = (live_rows * KV * 2 * dh * fmt.bits / 8 + live_rows * 2 * 4
+              + q.numel() * q.element_size() + B * P * 4 + B * Sq * 4 + B * 4
+              + B * Sq * H * n_split * (2 + dh) * 4)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 4 * dh * H * pairs)
+    rec["live_rows"] = live_rows
+    return rec
+
+
+def check_mla_quant(torch, timer, dtype, fmt, P=128, ps=16, c=None,
+                    timed=False, B=8, H=16, r=512, dr=64, scale_dim=192):
+    """The quantized MLA kernel at deepseek-v2-lite's widths on
+    ``mla_case``'s pool quantized on the card (a hole, a page past its
+    slot's position, an inactive slot); ``c`` pages a split (default:
+    the engine's choice, 1 at these sizes)."""
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.models.attention import (_combine_page_partials,
+                                              _pages_per_split)
+    pool, q_c, q_r, tbl, pos, tbl_np, pos_np = mla_case(
+        torch, dtype, B, H, r, dr, ps, P, seed=60 + P + ps)
+    pq, psc = fmt.quantize_rows(pool)
+    del pool
+    if c is None:
+        c = _pages_per_split(B, 1, H, P, r)
+    kw = dict(scale_pool=psc, bits=fmt.bits)
+    run = lambda: pfd.mla_paged_decode_partials(  # noqa: E731
+        pq, q_c, q_r, tbl, pos, r, scale_dim, pages_per_split=c, **kw)
+    plain = lambda: pfd.mla_paged_decode_partials_plain(  # noqa: E731
+        pq, q_c, q_r, tbl, pos, r, scale_dim, c, **kw)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    name = f"quant mla partials {fmt.name} P={P} ps={ps} c={c} {dtype}"
+    skipped = want[0] <= -1e30
+    if not (bool(skipped[-1].all()) and bool((got[0][skipped] == -1e30).all())
+            and bool((got[1][skipped] == 0).all())
+            and bool((got[2][skipped] == 0).all())):
+        fail(f"{name}: skipped pages are not the exact identities "
+             "(-1e30, 0, 0)")
+    err = (_combine_page_partials(*got) - _combine_page_partials(*want)) \
+        .abs().max().item()
+    tol = QMLA_TOL_BF16 if dtype == torch.bfloat16 else QMLA_TOL_F32
+    if not err <= tol:
+        fail(f"{name}: max |kernel - plain| {err} > {tol}")
+    rec = {"name": "mla_paged_decode_partials_quant", "dtype": str(dtype),
+           "format": fmt.name,
+           "shapes": {"q_c": [B, 1, H, r], "q_rope": [B, 1, H, dr],
+                      "pool": list(pq.shape), "tbl": [B, P],
+                      "pages_per_split": c},
+           "max_abs_err": err, "tol": tol,
+           "bitwise": bool(all(torch.equal(a, b) for a, b in zip(got, want)))}
+    if not timed:
+        return rec
+    rec["kernel_ms"] = timer.ms(run)
+    rec["plain_ms"] = timer.ms(plain)
+    rec["library_ms"] = None
+    live = sum(min(int(p) + 1, (j + 1) * ps) - j * ps
+               for b, p in enumerate(pos_np) for j in range(P)
+               if tbl_np[b, j] >= 0 and j * ps <= p)
+    el = q_c.element_size()
+    n_split = -(-P // c)
+    nbytes = (live * ((r + dr) * fmt.bits / 8 + 4)
+              + (q_c.numel() + q_r.numel()) * el + B * P * 4 + B * 4
+              + B * H * n_split * (2 + r) * 4)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        nbytes, 2 * H * (2 * r + dr) * live)
+    rec["live_rows"] = live
+    return rec
+
+
+def quant_kernel_checks(torch, timer):
+    """Phase 2c: both quantized kernels at int8 and int4, bf16 and
+    float32, one page a split and two and three (the GQA kernel also at
+    the engine's split of a resumed chunk; the MLA kernel also at page
+    32).  The engine's choices are timed in bf16."""
+    from repro_torch.core.pageformat import INT4, INT8
+    recs = {}
+    for fmt in (INT8, INT4):
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            for sq in (1, 256):
+                # c None: the engine's split (1 at decode, 43 at Sq 256)
+                for c in ((None, 2, 3) if sq == 1 else (None, 1, 2, 3)):
+                    recs[f"gqa_{fmt.name}_sq{sq}_c{c or 'eng'}_{tag}"] = \
+                        check_paged_quant(torch, timer, dt, fmt, sq, c,
+                                          timed=c is None and tag == "bf16")
+            for ps, c in ((16, None), (16, 2), (16, 3), (32, 1), (32, 2)):
+                recs[f"mla_{fmt.name}_ps{ps}_c{c or 'eng'}_{tag}"] = \
+                    check_mla_quant(torch, timer, dt, fmt, ps=ps, c=c,
+                                    timed=c is None and tag == "bf16")
+            torch.cuda.empty_cache()
+    for rec in recs.values():
+        print(json.dumps(dict(phase="kernel_quant", **rec)), flush=True)
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -802,11 +1039,16 @@ def serve_f32(torch, quant=None):
 # Phases 8-9: MLA serving (deepseek-v2-lite's widths, its dense block).
 # ---------------------------------------------------------------------------
 
-def plain_mla_forward(torch, params, cfg, tokens):
+def plain_mla_forward(torch, params, cfg, tokens, kv_fmt=None,
+                      attention=None):
     """Contiguous forward of one sequence in MLA's naive (expanded) form
     for every position, with the plain attention (no pool, no page
-    table, no kernel): (S, padded_vocab) logits."""
+    table, no kernel): (S, padded_vocab) logits.  ``kv_fmt`` quantizes
+    and dequantizes each latent row (c_kv and k_rope together) as a
+    quantized pool stores it; ``attention`` replaces the plain
+    attention."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
+    attention = attention or flash_attention_plain
     from repro_torch.models.blocks import apply_norm
     from repro_torch.models.common import embed_lookup, rms_norm, rope
     if cfg.mlp_act != "silu_glu":
@@ -825,12 +1067,15 @@ def plain_mla_forward(torch, params, cfg, tokens):
         ckv = y @ a["w_dkv"]
         c = rms_norm(ckv[..., :r], a["kv_norm"])
         kr = rope(ckv[..., r:][:, :, None, :], pos, cfg.rope_theta)
+        if kv_fmt is not None:
+            row = kv_roundtrip(kv_fmt, torch.cat([c, kr[:, :, 0]], dim=-1))
+            c, kr = row[..., :r], row[..., r:][:, :, None, :]
         k = torch.cat([(c @ a["w_uk"]).reshape(1, s, h, dn),
                        kr.expand(1, s, h, dr)], dim=-1)
         v = (c @ a["w_uv"]).reshape(1, s, h, dv)
         qq = torch.cat([q[..., :dn], rope(q[..., dn:], pos, cfg.rope_theta)],
                        dim=-1)
-        o = flash_attention_plain(qq, k, v)
+        o = attention(qq, k, v)
         x = x + o.reshape(1, s, h * dv) @ a["w_o"]
         y = apply_norm(blk.ln2, x, cfg)
         g = torch.nn.functional.silu((y @ f["w_gate"]).float())
@@ -1029,6 +1274,229 @@ def serve_mla_f32(torch):
         fail(f"f32 MLA engine tokens differ from the plain forward: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-11: serving on quantized KV pools (both models).
+# ---------------------------------------------------------------------------
+
+def kv_roundtrip(fmt, x):
+    """Rows (B, S, *feat) quantized and dequantized row by row, as a
+    quantized pool stores and returns them."""
+    q, scale = fmt.quantize_rows(x)
+    return fmt.dequantize(q, scale, x.dtype)
+
+
+def kv_attention(fmt, attention=None):
+    """The plain attention (or ``attention``) on K/V rows that went
+    through the pool's format row by row."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    attention = attention or flash_attention_plain
+    return lambda q, k, v: attention(q, kv_roundtrip(fmt, k),
+                                     kv_roundtrip(fmt, v))
+
+
+def kv_plain(torch, params, cfg, fmt):
+    """seq, widened -> plain contiguous logits of ``seq`` with the pool's
+    per-row quantization, and no port kernel: the GQA forward, or MLA's
+    naive form; ``widened`` runs the attention on widened inputs (the
+    noise floor)."""
+    if cfg.kv_lora_rank:
+        return lambda seq, widened=False: plain_mla_forward(
+            torch, params, cfg, seq, kv_fmt=fmt,
+            attention=widened_attention if widened else None)
+    return lambda seq, widened=False: plain_forward(
+        torch, params, cfg, seq, attention=kv_attention(
+            fmt, widened_attention if widened else None))
+
+
+def rolled_scales(fn):
+    """The planted fault: ``fn`` (a quantized kernel's wrapper) called
+    with every row's scale rolled by one within its page."""
+    def faulty(*args, **kw):
+        return fn(*args, **{k: (v.roll(1, dims=1) if "scale" in k else v)
+                            for k, v in kw.items()})
+    return faulty
+
+
+def kv_logit_check(torch, plain, r, base_tol):
+    """Teacher-forced logits of the finished request ``r`` against the
+    plain forward: (error, noise floor, bound).  The bound is
+    SERVE_KV_NOISE_FACTOR times the floor (plain forward against itself
+    with widened attention, no port kernel), and at least the fp path's
+    own ``base_tol``."""
+    import numpy as np
+    seq = r.prompt + r.out_tokens[:-1]
+    start = len(r.prompt) - 1
+    got = torch.from_numpy(np.stack(r.logits))
+    ref = plain(seq)[start:].float().cpu()
+    alt = plain(seq, widened=True)[start:].float().cpu()
+    floor = rel_err(alt, ref)
+    return rel_err(got, ref), floor, max(base_tol,
+                                         SERVE_KV_NOISE_FACTOR * floor)
+
+
+def serve_kv(torch, card, cfg, params, fmt, prompts, want, base_tol,
+             patch):
+    """Phase 10: serve ``prompts`` at full depth on a ``fmt`` pool
+    through submit/tick/drain.  Every dispatch's launches are logged and
+    held to ``want`` (dispatch kind -> the one kernel it launches, once
+    a layer); the pool's bytes are printed beside the fp pool's; every
+    request's teacher-forced logits are held to kv_logit_check's bound,
+    and the same engine with the planted fault (``patch`` = (module,
+    wrapper name)), serving requests 0 and 8, must land outside it.
+    Returns the launches of the run."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.models.model import init_paged_cache
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    tag = f"{cfg.name} {fmt.name}"
+    sc = ServeConfig(max_batch=8, max_prompt=256, page_size=16, max_seq=2048,
+                     max_new_tokens=32, record_logits=True,
+                     kv_format=fmt.name)
+    eng = ServingEngine(cfg, params, sc, device="cuda")
+    eng.warmup()
+    reqs = [Request(i, p) for i, p in enumerate(prompts)]
+    counters = {"flash_attention_fwd": lambda: fa.launches,
+                "paged_flash_decode_partials": lambda: pfd.launches,
+                "paged_flash_decode_partials_quant":
+                    lambda: pfd.quant_launches,
+                "mla_paged_decode_partials": lambda: pfd.mla_launches,
+                "mla_paged_decode_partials_quant":
+                    lambda: pfd.mla_quant_launches}
+    log = record_dispatches(eng, counters)
+    fa.launches = pfd.launches = pfd.quant_launches = 0
+    pfd.mla_launches = pfd.mla_quant_launches = 0
+    wall, per_decode = drive(torch, eng, reqs, counters)
+    eng.drain()
+    launches = {n: c() for n, c in counters.items()}
+    for r in reqs:
+        if not r.done or r.failed or len(r.out_tokens) != sc.max_new_tokens:
+            fail(f"{tag}: request {r.rid}: done={r.done} failed={r.failed} "
+                 f"tokens={len(r.out_tokens)}")
+    kinds = {k: 0 for k in want}
+    for kind, got in log:
+        kinds[kind] += 1
+        exp = {n: (cfg.n_layers if n == want[kind] else 0) for n in counters}
+        if got != exp:
+            fail(f"{tag}: a {kind} dispatch launched {got}, want {exp}")
+    if min(kinds.values()) < 1:
+        fail(f"{tag}: dispatch kinds {kinds}: each must run at least once")
+    if eng.n_shared_admissions < 1:
+        fail(f"{tag}: the shared-prefix request was not admitted as a "
+             "sharer")
+    pool = eng.pool_bytes_per_shard()
+    fp_pool = sum(t.numel() * t.element_size() for t in init_paged_cache(
+        cfg, eng.num_pages, sc.page_size, device="meta")[0].values())
+    limit = POOL_RATIO_LIMIT[fmt.name]
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    print(json.dumps({"phase": "serve_kv", "arch": cfg.name,
+                      "dtype": str(cfg.dtype), "kv_format": fmt.name,
+                      "layers": cfg.n_layers,
+                      "requests": len(reqs), "tokens": n_tok, "wall_s": wall,
+                      "tokens_per_s": n_tok / wall, "stats": eng.stats(),
+                      "dispatches": kinds, "launches": launches,
+                      "launches_per_decode_tick": per_decode,
+                      "pool_bytes_per_shard": pool, "fp_pool_bytes": fp_pool,
+                      "pool_ratio": pool / fp_pool, "pool_ratio_limit": limit,
+                      "card": card}), flush=True)
+    if not pool <= limit * fp_pool:
+        fail(f"{tag}: pool {pool} bytes is {pool / fp_pool} of the bf16 "
+             f"pool's {fp_pool}, above {limit}")
+    del eng
+    torch.cuda.empty_cache()
+    # the planted fault serves the longest request and the sharer
+    module, attr = patch
+    good = getattr(module, attr)
+    setattr(module, attr, rolled_scales(good))
+    try:
+        bad_eng = ServingEngine(cfg, params, sc, device="cuda")
+        faulty = {rid: Request(rid, prompts[rid]) for rid in (0, 8)}
+        bad_eng.run(list(faulty.values()))
+    finally:
+        setattr(module, attr, good)
+    del bad_eng
+    torch.cuda.empty_cache()
+    plain = kv_plain(torch, params, cfg, fmt)
+    checks = []
+    with torch.inference_mode():
+        for r in reqs:
+            err, floor, tol = kv_logit_check(torch, plain, r, base_tol)
+            rec = {"rid": r.rid, "max_rel_err": err, "noise_floor": floor,
+                   "rel_tol": tol}
+            if r.rid in faulty:
+                rec["fault"], rec["fault_floor"], rec["fault_tol"] = \
+                    kv_logit_check(torch, plain, faulty[r.rid], base_tol)
+            checks.append(rec)
+    print(json.dumps({"phase": "serve_kv_check", "arch": cfg.name,
+                      "kv_format": fmt.name, "requests": checks}),
+          flush=True)
+    for rec in checks:
+        if not rec["max_rel_err"] <= rec["rel_tol"]:
+            fail(f"{tag}: request {rec['rid']}: teacher-forced logits differ "
+                 f"by {rec['max_rel_err']} of the row max (> "
+                 f"{rec['rel_tol']}; {rec})")
+        if "fault" in rec and not rec["fault"] > rec["fault_tol"]:
+            fail(f"{tag}: request {rec['rid']}: the planted fault (rolled "
+                 f"row scales) moves the logits by {rec['fault']} of the "
+                 f"row max, inside the bound {rec['fault_tol']}: the check "
+                 "cannot see it")
+    return launches
+
+
+def serve_kv_f32(torch, name, fmt):
+    """Phase 11: a 2-layer float32 ``name`` at full width through the
+    engine on a ``fmt`` pool; its greedy tokens must equal the plain
+    forward's (with the pool's per-row quantization), except at a
+    position whose top-two gap in the plain forward is within twice the
+    kernel-free noise there (max |widened - plain| over the row), as in
+    phase 7; each such position is printed."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    cfg = get_config(name)
+    kind = cfg.pattern[0][1]
+    cfg = cfg.with_(n_layers=2, pattern=(("scan", kind, 2),),
+                    dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                         device="cuda")
+    sc = ServeConfig(max_batch=4, max_prompt=256, page_size=16, max_seq=1024,
+                     max_new_tokens=8, kv_format=fmt.name)
+    eng = ServingEngine(cfg, params, sc, device="cuda")
+    rng = np.random.RandomState(8)
+    reqs = [Request(i, [int(t) for t in rng.randint(0, cfg.vocab_size, n)])
+            for i, n in enumerate((40, 300, 600, 17, 260, 90))]
+    eng.run(reqs)
+    del eng
+    plain = kv_plain(torch, params, cfg, fmt)
+    bad, ties = [], []
+    with torch.inference_mode():
+        for r in reqs:
+            seq = r.prompt + r.out_tokens[:-1]
+            start = len(r.prompt) - 1
+            ref = plain(seq)[start:].float().cpu()
+            want = ref.argmax(-1).tolist()
+            if want == r.out_tokens:
+                continue
+            alt = plain(seq, widened=True)[start:].float().cpu()
+            for i, (g, w) in enumerate(zip(r.out_tokens, want)):
+                if g == w:
+                    continue
+                pos = {"rid": r.rid, "pos": i, "engine": g, "plain": w,
+                       "gap": (ref[i, w] - ref[i, g]).item(),
+                       "noise": (alt[i] - ref[i]).abs().max().item()}
+                (ties if pos["gap"] <= 2 * pos["noise"] else bad).append(pos)
+    print(json.dumps({"phase": "serve_kv_f32", "arch": name,
+                      "kv_format": fmt.name, "layers": 2,
+                      "requests": len(reqs),
+                      "tokens": sum(len(r.out_tokens) for r in reqs),
+                      "token_mismatches": len(bad) + len(ties),
+                      "within_bound": ties}), flush=True)
+    if bad:
+        fail(f"f32 {name} {fmt.name} engine tokens differ from the plain "
+             f"forward: {bad}")
+
+
 def kernel_entry(name, source, replaces, launches, rec):
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + source,
@@ -1096,6 +1564,7 @@ def main() -> None:
 
     timer = Timer(torch)
     recs, mla_recs = kernel_checks(torch, timer)
+    q_recs = quant_kernel_checks(torch, timer)
     t0 = time.perf_counter()
     mm_recs = [check_matmul(torch, timer, *case, seed=i)
                for i, case in enumerate(mm_cases())]
@@ -1125,6 +1594,19 @@ def main() -> None:
         launches[name], per_decode[name] = q_launches[name], q_per[name]
         del packed
         torch.cuda.empty_cache()
+    from repro_torch.core.pageformat import INT4, INT8
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import mla as mla_mod
+    kv_launches = {}
+    gqa_want = {k: "paged_flash_decode_partials_quant"
+                for k in ("fresh", "resumed", "decode")}
+    for fmt in (INT8, INT4):
+        got = serve_kv(torch, card, cfg, raw, fmt,
+                       smoke_traffic(cfg.vocab_size), gqa_want,
+                       SERVE_REL_TOL_BF16,
+                       (attn_mod, "paged_flash_decode_partials"))
+        for n, v in got.items():
+            kv_launches[n] = kv_launches.get(n, 0) + v
     del raw
     torch.cuda.empty_cache()
     serve_f32(torch)
@@ -1136,9 +1618,21 @@ def main() -> None:
                              torch.Generator(device="cuda").manual_seed(2),
                              device="cuda")
     mla_launches, mla_per_decode = serve_mla(torch, card, dense, mla_params)
+    mla_want = {"fresh": "paged_flash_decode_partials",
+                "resumed": "paged_flash_decode_partials",
+                "decode": "mla_paged_decode_partials_quant"}
+    for fmt in (INT8, INT4):
+        got = serve_kv(torch, card, dense, mla_params, fmt,
+                       mla_traffic(dense.vocab_size), mla_want,
+                       SERVE_MLA_REL_TOL,
+                       (mla_mod, "mla_paged_decode_partials"))
+        for n, v in got.items():
+            kv_launches[n] = kv_launches.get(n, 0) + v
     del mla_params
     torch.cuda.empty_cache()
     serve_mla_f32(torch)
+    for name in ("qwen2.5-3b", "deepseek-v2-lite-dense"):
+        serve_kv_f32(torch, name, INT4)
 
     for rec in (recs[0], recs[2], recs[3]):
         print(json.dumps({
@@ -1155,6 +1649,10 @@ def main() -> None:
         print(json.dumps(dict(rec, path="deepseek-v2-lite-dense",
                               launches_per_decode_step=mla_per_decode[
                                   rec["name"]])), flush=True)
+    for key in ("gqa_int8_sq1_ceng_bf16", "gqa_int4_sq1_ceng_bf16",
+                "gqa_int8_sq256_ceng_bf16", "gqa_int4_sq256_ceng_bf16",
+                "mla_int8_ps16_ceng_bf16", "mla_int4_ps16_ceng_bf16"):
+        print(json.dumps(dict(q_recs[key], case=key)), flush=True)
 
     def mla_path(name, rec):
         return {"launches": mla_launches[name],
@@ -1162,6 +1660,9 @@ def main() -> None:
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                 "shapes": rec["shapes"]}
+    def quant_path(rec):
+        return {k: rec[k] for k in ("max_abs_err", "kernel_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "shapes")}
     # the decode-time w_down case (K = 11008) stands for each matmul
     rep = {r["name"]: r for r in mm_recs
            if r["shapes"] == {"M": 8, "K": 11008, "N": 2048}
@@ -1190,6 +1691,22 @@ def main() -> None:
         kernel_entry("mpq_matmul", "mpq_matmul.cu",
                      "src/repro/kernels/mpq_matmul.py:32",
                      launches["mpq_matmul"], rep["mpq_matmul"]),
+        # the quantized kernels: int8 at decode, with int4 and the
+        # resumed 256-row chunk (GQA) beside it
+        dict(kernel_entry("paged_flash_decode_partials_quant",
+                          "paged_flash_decode.cu",
+                          "src/repro/kernels/paged_flash_decode.py:168",
+                          kv_launches["paged_flash_decode_partials_quant"],
+                          q_recs["gqa_int8_sq1_ceng_bf16"]),
+             int4=quant_path(q_recs["gqa_int4_sq1_ceng_bf16"]),
+             resumed_int8=quant_path(q_recs["gqa_int8_sq256_ceng_bf16"]),
+             resumed_int4=quant_path(q_recs["gqa_int4_sq256_ceng_bf16"])),
+        dict(kernel_entry("mla_paged_decode_partials_quant",
+                          "mla_paged_decode.cu",
+                          "src/repro/kernels/paged_flash_decode.py:337",
+                          kv_launches["mla_paged_decode_partials_quant"],
+                          q_recs["mla_int8_ps16_ceng_bf16"]),
+             int4=quant_path(q_recs["mla_int4_ps16_ceng_bf16"])),
     ]}
     print(card, flush=True)
     print(json.dumps(line), flush=True)

@@ -10,7 +10,9 @@ Conventions, as in the reference:
   * weights: static per-output-channel (or per-tensor) scales;
   * activations: dynamic per-row (per-token) scales;
   * integer products accumulate in int32 and are dequantized with
-    ``x_scale * w_scale``.
+    ``x_scale * w_scale``;
+  * KV pool rows (:func:`quantize_page_rows`): one dynamic scale per
+    cache row, over all of its feature axes.
 
 Integer outputs are bitwise equal to the reference's: the division is in
 float32 and ``torch.round`` rounds half to even, as ``jnp.round`` does.
@@ -120,6 +122,27 @@ def quantize_weight(w: torch.Tensor, bits: int, granularity: str = "channel"):
     axis = 0 if granularity == "channel" else None
     q, scale = quantize(w, bits, axis=axis)
     return q, scale.reshape(-1).float()
+
+
+def quantize_page_rows(rows: torch.Tensor, bits: int, eps: float = 1e-8):
+    """Per-row symmetric quantization for the paged KV pool.  ``rows``:
+    (B, S, *feat), one cache row per (slot, position); the absmax spans
+    every trailing feature axis, so each row has one float32 scale and
+    the scale pool beside a page pool is (num_pages, page_size).
+    Returns (q int8 of rows.shape, scales float32 of rows.shape[:2])."""
+    scale = compute_scale(rows, bits, axis=tuple(range(2, rows.dim())),
+                          eps=eps)
+    q, _ = quantize(rows, bits, scale=scale)
+    return q, scale.reshape(rows.shape[:2]).float()
+
+
+def dequantize_page_rows(q: torch.Tensor, scales: torch.Tensor,
+                         dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize_page_rows` (after any unpack): ``q``
+    (B, S, *feat) integer values, ``scales`` (B, S) float32, broadcast
+    over the feature axes."""
+    s = scales.reshape(tuple(scales.shape) + (1,) * (q.dim() - scales.dim()))
+    return (q.float() * s).to(dtype)
 
 
 def quantize_activation(x: torch.Tensor, bits: int):

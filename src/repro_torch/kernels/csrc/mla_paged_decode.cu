@@ -1,11 +1,17 @@
 // MLA compressed-space paged decode partials, read straight from the
 // latent page pool.
 //
-// Replaces: the Pallas body `_mla_page_kernel` behind
+// Replaces: the Pallas bodies `_mla_page_kernel` (fp pool) and
+// `_mla_page_kernel_quant` (int8 / packed int4 pool) behind
 // `repro/kernels/paged_flash_decode.py::mla_paged_decode_partials` (TPU).
 //
 // Inputs: pool (N, ps, R + DR) — one latent row per cached token, the
-// normalised c_kv (R wide) followed by the roped k_rope (DR wide); absorbed
+// normalised c_kv (R wide) followed by the roped k_rope (DR wide); a
+// quantized pool (entry point `mla_paged_decode_partials_quant`) holds
+// int8 rows (N, ps, 576) or packed int4 rows (N, ps, 288) with one (N, ps)
+// float32 scale a row covering c_kv and k_rope alike: each row is
+// dequantized whole as it is staged (page_rows.cuh), and only then split
+// at R, as the reference's `_mla_page_kernel_quant` does; absorbed
 // queries q_c (B, Sq, H, R) and q_rope (B, Sq, H, DR); tbl (B, P) int32
 // page table (-1 = unmapped); pos (B,) int32 slot positions (-1 = inactive
 // slot).  Output: float32 partials m, l (B, Sq, H, S) and acc
@@ -33,13 +39,16 @@
 // heads (the latent row is shared by every head, the point of MLA): one
 // block per (16 query rows, split, slot).  The block stages 16 pool rows
 // at a time in shared memory as float32 with 16-byte vector loads (a row
-// is 1152 bytes in bf16, 2304 in float32, and the c/k_rope split at R =
-// 512 falls on a 16-byte boundary, so no vector straddles it).  Thread
+// is 1152 bytes in bf16, 2304 in float32, 576 in int8 and 288 in int4,
+// all multiples of 16, so every row of a 16-byte-aligned pool starts on a
+// 16-byte boundary; an int4 vector of bytes j..j+15 yields elements j..
+// j+15 and j+288..j+303).  A quantized page moves 2x (int8) or 4x (int4)
+// fewer bytes than bf16, plus 4 bytes of scale a row.  Thread
 // (row, key) computes one score; the 16 keys of a row sit in one half
 // warp, so the row's max and sum are half-warp shuffles; then thread
 // (row, lane) keeps output dims lane, lane + 16, ... of its row in
 // registers.  Plain FMA on the CUDA cores; wgmma and TMA come later.
-#include "flash_tile.cuh"
+#include "page_rows.cuh"
 
 #include <cstdint>
 
@@ -59,18 +68,38 @@ struct MlaSmem {
   }
 };
 
-// 16 bytes of T widened into `dst` (8 bf16 or 4 float values).
-template <typename T>
-__device__ __forceinline__ void load16(const T* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const T* v = reinterpret_cast<const T*>(&raw);
+// Stage the 16-byte vector v of a stored W-wide row into the float32 row
+// `dst`: 8 bf16 or 4 float32 values as they are; 16 int8 lanes; or 16
+// int4 bytes, whose low nibbles are elements 16v.. and high nibbles
+// elements W/2 + 16v.. (the strided layout), each dequantized with the
+// row's `scale`.
+template <typename T, int BITS, int W>
+__device__ __forceinline__ void stage16(const stored_t<T, BITS>* row,
+                                        float scale, int v, float* dst) {
+  constexpr int PER = 16 / sizeof(stored_t<T, BITS>);
+  const int e = v * PER;
+  const uint4 raw = *reinterpret_cast<const uint4*>(row + e);
+  if constexpr (BITS == 0) {
+    const T* x = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-  for (int i = 0; i < int(16 / sizeof(T)); ++i) dst[i] = to_f<T>(v[i]);
+    for (int i = 0; i < PER; ++i) dst[e + i] = to_f<T>(x[i]);
+  } else {
+    const uint8_t* x = reinterpret_cast<const uint8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      dst[e + i] = dequant<T>(lane_value<BITS>(x[i], 0), scale);
+      if constexpr (BITS == 4)
+        dst[W / 2 + e + i] = dequant<T>(lane_value<4>(x[i], 1), scale);
+    }
+  }
 }
 
-template <typename T, int R, int DR>
+// BITS 0: an fp pool of T; 8 / 4: a quantized pool with row scales.
+template <typename T, int BITS, int R, int DR>
 __global__ void __launch_bounds__(NT)
-mla_partials_kernel(const T* __restrict__ pool, const T* __restrict__ q_c,
+mla_partials_kernel(const stored_t<T, BITS>* __restrict__ pool,
+                    const float* __restrict__ scales,
+                    const T* __restrict__ q_c,
                     const T* __restrict__ q_rope, const int* __restrict__ tbl,
                     const int* __restrict__ pos, float* __restrict__ m_out,
                     float* __restrict__ l_out, float* __restrict__ acc_out,
@@ -78,9 +107,11 @@ mla_partials_kernel(const T* __restrict__ pool, const T* __restrict__ q_c,
                     int n_splits, float scale) {
   using S = MlaSmem<R, DR>;
   constexpr int W = S::W, RS = S::RS;
-  constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
+  constexpr int SW = stored_width<BITS, W>();   // stored row length
+  constexpr int NV = SW * sizeof(stored_t<T, BITS>) / 16;  // 16-byte vectors
   constexpr int ND = R / BK;            // output dims per thread
-  static_assert(R % BK == 0 && W % VEC == 0 && R % VEC == 0, "widths");
+  static_assert(R % BK == 0 && NV * 16 == SW * sizeof(stored_t<T, BITS>),
+                "widths");
   extern __shared__ float smem[];
   float* Qs = smem;                     // BQ x (R + DR) queries
   float* Ks = Qs + BQ * RS;             // BK x (R + DR) pool rows
@@ -119,10 +150,12 @@ mla_partials_kernel(const T* __restrict__ pool, const T* __restrict__ q_c,
       // block-uniform skip: unmapped page, or rows past the slot position
       if (page < 0 || kbase > pb) break;
       __syncthreads();                  // queries staged / Ks, Ps consumed
-      const T* src = pool + ((size_t)page * ps + sub) * W;
-      for (int v = tid; v < BK * W / VEC; v += NT) {
-        const int c = v / (W / VEC), e = (v % (W / VEC)) * VEC;
-        load16<T>(src + (size_t)c * W + e, Ks + c * RS + e);
+      const size_t srow = (size_t)page * ps + sub;  // cache row of c = 0
+      for (int v = tid; v < BK * NV; v += NT) {
+        const int c = v / NV;
+        stage16<T, BITS, W>(pool + (srow + c) * SW,
+                            BITS ? scales[srow + c] : 0.f, v % NV,
+                            Ks + c * RS);
       }
       __syncthreads();
 
@@ -179,21 +212,45 @@ mla_partials_kernel(const T* __restrict__ pool, const T* __restrict__ q_c,
   }
 }
 
-template <typename T, int R, int DR>
-int launch(const void* pool, const void* q_c, const void* q_rope,
-           const int* tbl, const int* pos, float* m, float* l, float* acc,
-           int B, int Sq, int H, int ps, int P, int pps, int n_splits,
-           float scale, cudaStream_t stream) {
+template <typename T, int BITS, int R, int DR>
+int launch(const void* pool, const float* scales, const void* q_c,
+           const void* q_rope, const int* tbl, const int* pos, float* m,
+           float* l, float* acc, int B, int Sq, int H, int ps, int P, int pps,
+           int n_splits, float scale, cudaStream_t stream) {
   static bool smem_ok = false;
   const size_t smem = MlaSmem<R, DR>::bytes();
-  cudaError_t e = allow_smem(mla_partials_kernel<T, R, DR>, smem, &smem_ok);
+  cudaError_t e =
+      allow_smem(mla_partials_kernel<T, BITS, R, DR>, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Sq * H + BQ - 1) / BQ, n_splits, B);
-  mla_partials_kernel<T, R, DR><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(pool), static_cast<const T*>(q_c),
-      static_cast<const T*>(q_rope), tbl, pos, m, l, acc, Sq, H, ps, P, pps,
-      n_splits, scale);
+  mla_partials_kernel<T, BITS, R, DR><<<grid, NT, smem, stream>>>(
+      static_cast<const stored_t<T, BITS>*>(pool), scales,
+      static_cast<const T*>(q_c), static_cast<const T*>(q_rope), tbl, pos, m,
+      l, acc, Sq, H, ps, P, pps, n_splits, scale);
   return (int)cudaGetLastError();
+}
+
+template <int BITS>
+int dispatch_dtype(int dtype, const void* pool, const float* scales,
+                   const void* q_c, const void* q_rope, const void* tbl,
+                   const void* pos, void* m, void* l, void* acc, int B,
+                   int Sq, int H, int ps, int P, int pps, float scale,
+                   cudaStream_t s) {
+  const int ns = (P + pps - 1) / pps;
+  const int* t = static_cast<const int*>(tbl);
+  const int* pb = static_cast<const int*>(pos);
+  float* mf = static_cast<float*>(m);
+  float* lf = static_cast<float*>(l);
+  float* af = static_cast<float*>(acc);
+  if (dtype == 0)
+    return launch<float, BITS, 512, 64>(pool, scales, q_c, q_rope, t, pb, mf,
+                                        lf, af, B, Sq, H, ps, P, pps, ns,
+                                        scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, BITS, 512, 64>(pool, scales, q_c, q_rope, t,
+                                                pb, mf, lf, af, B, Sq, H, ps,
+                                                P, pps, ns, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -209,19 +266,30 @@ extern "C" int mla_paged_decode_partials(
   if (B == 0 || Sq == 0 || H == 0 || P == 0) return 0;
   if (ps % BK != 0 || pages_per_split < 1 || r != 512 || dr != 64)
     return (int)cudaErrorInvalidValue;
-  const int ns = (P + pages_per_split - 1) / pages_per_split;
+  return dispatch_dtype<0>(dtype, pool, nullptr, q_c, q_rope, tbl, pos, m, l,
+                           acc, B, Sq, H, ps, P, pages_per_split, scale,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The quantized latent pool: int8 rows of (r + dr) * bits / 8 bytes,
+// scale_pool (N, ps) float32, bits 8 or 4; dtype (0 = float32, 1 =
+// bfloat16) is the queries' and the dequantized rows' type.  Otherwise as
+// above.
+extern "C" int mla_paged_decode_partials_quant(
+    const void* pool, const void* scale_pool, const void* q_c,
+    const void* q_rope, const void* tbl, const void* pos, void* m, void* l,
+    void* acc, int B, int Sq, int H, int r, int dr, int ps, int P,
+    int pages_per_split, float scale, int bits, int dtype, void* stream) {
+  if (B == 0 || Sq == 0 || H == 0 || P == 0) return 0;
+  if (ps % BK != 0 || pages_per_split < 1 || r != 512 || dr != 64)
+    return (int)cudaErrorInvalidValue;
+  const float* sp = static_cast<const float*>(scale_pool);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* t = static_cast<const int*>(tbl);
-  const int* pb = static_cast<const int*>(pos);
-  float* mf = static_cast<float*>(m);
-  float* lf = static_cast<float*>(l);
-  float* af = static_cast<float*>(acc);
-  if (dtype == 0)
-    return launch<float, 512, 64>(pool, q_c, q_rope, t, pb, mf, lf, af, B, Sq,
-                                  H, ps, P, pages_per_split, ns, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, 512, 64>(pool, q_c, q_rope, t, pb, mf, lf, af,
-                                          B, Sq, H, ps, P, pages_per_split, ns,
-                                          scale, s);
+  if (bits == 8)
+    return dispatch_dtype<8>(dtype, pool, sp, q_c, q_rope, tbl, pos, m, l,
+                             acc, B, Sq, H, ps, P, pages_per_split, scale, s);
+  if (bits == 4)
+    return dispatch_dtype<4>(dtype, pool, sp, q_c, q_rope, tbl, pos, m, l,
+                             acc, B, Sq, H, ps, P, pages_per_split, scale, s);
   return (int)cudaErrorInvalidValue;
 }

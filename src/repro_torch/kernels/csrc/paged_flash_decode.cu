@@ -1,6 +1,7 @@
 // Paged flash-decode partials, read straight from the KV page pool.
 //
-// Replaces: the Pallas fp body `_gqa_page_kernel` behind
+// Replaces: the Pallas bodies `_gqa_page_kernel` (fp pools) and
+// `_gqa_page_kernel_quant` (int8 / packed int4 pools) behind
 // `repro/kernels/paged_flash_decode.py::paged_flash_decode_partials` (TPU).
 //
 // Inputs: q (B, Sq, H, dk); pools K (N, ps, KV, dk) and V (N, ps, KV, dv);
@@ -8,6 +9,12 @@
 // positions; kv_valid (B,) int32 filled-row bounds.  The softmax scale is
 // dk^-0.5.  dk = dv except for MLA's resumed chunk, whose window is
 // expanded to dk = 192, dv = 128 and viewed as a pool by the caller.
+// Quantized pools (entry point `paged_flash_decode_partials_quant`) hold
+// int8 rows (N, ps, KV, dh) or packed int4 rows (N, ps, KV, dh / 2) with
+// (N, ps) float32 row scales k_scale / v_scale, one per cache row across
+// its KV heads, read through the same table; each page is dequantized as
+// it is staged (page_rows.cuh) and the score and softmax code is the fp
+// kernel's.  The softmax scale uses the full dh.
 // Output: float32 flash partials m, l (B, Sq, KV, G, S) and acc
 // (B, Sq, KV, G, S, dv) over S splits of the
 // logical page axis, split s covering pages [s*c, (s+1)*c) with
@@ -25,29 +32,37 @@
 // What bounds it on an H100: decode (Sq = 1) does ~2 * G * (dk + dv)
 // operations per cached K/V row of dk + dv elements, far below the card's ~295
 // operations per byte, so it is memory-bound: the least time is the
-// mapped, live pages' bytes over 3.35 TB/s.  The design reads each live
-// page once per (slot, KV head) and keeps the gathered window out of
-// device memory: one block per (row tile of Sq*G query rows, split, slot,
-// KV head) reads its own table entries and stages each page in shared
-// memory, 16 rows at a time.  For a resumed chunk (Sq = a whole prefill
-// chunk) the partials would grow as Sq * P; the caller then raises c so
-// that S stays small, and each block walks its c pages in order.
-#include "flash_tile.cuh"
+// mapped, live pages' bytes over 3.35 TB/s (a quantized pool moves 2x /
+// 4x fewer of them than bf16, plus 8 bytes of scales a row).  The design
+// reads each live page once per (slot, KV head) and keeps the gathered
+// (and dequantized) window out of device memory: one block per (row tile
+// of Sq*G query rows, split, slot, KV head) reads its own table entries
+// and stages each page in shared memory as float32, 16 rows at a time.
+// For a resumed chunk (Sq = a whole prefill chunk) the partials would
+// grow as Sq * P; the caller then raises c so that S stays small, and
+// each block walks its c pages in order.
+#include "page_rows.cuh"
 
 namespace {
 
 constexpr int BK = 16;                  // pool rows staged per step
 
-template <typename T, int DK, int DV, int BQ>
+// BITS 0: fp pools of T; 8 / 4: quantized pools with row scales.
+template <typename T, int BITS, int DK, int DV, int BQ>
 __global__ void __launch_bounds__(4 * BQ)
-paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                      const T* __restrict__ vpool, const int* __restrict__ tbl,
+paged_partials_kernel(const T* __restrict__ q,
+                      const stored_t<T, BITS>* __restrict__ kpool,
+                      const stored_t<T, BITS>* __restrict__ vpool,
+                      const float* __restrict__ kscale,
+                      const float* __restrict__ vscale,
+                      const int* __restrict__ tbl,
                       const int* __restrict__ qpos,
                       const int* __restrict__ kv_valid, float* __restrict__ m_out,
                       float* __restrict__ l_out, float* __restrict__ acc_out,
                       int Sq, int H, int KV, int ps, int P, int pages_per_split,
                       int n_splits, float scale) {
   using Tile = FlashTile<T, DK, DV, BQ, BK>;
+  constexpr int SK = stored_width<BITS, DK>(), SV = stored_width<BITS, DV>();
   extern __shared__ float smem[];
   __shared__ int s_maxq;
   Tile tile;
@@ -88,14 +103,19 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
       const int kbase = j * ps + sub;
       // block-uniform skip: unmapped, causally future or unfilled rows
       if (page < 0 || kbase > maxq || kbase >= kvs) break;
-      const size_t prow = ((size_t)page * ps + sub) * KV + kvh;
+      const size_t srow = (size_t)page * ps + sub;   // cache row of c = 0
+      const size_t prow = srow * KV + kvh;              // its pool row
       for (int idx = tid; idx < BK * DK; idx += Tile::NT) {
         const int c = idx / DK, d = idx % DK;
-        tile.stage_k_elem(c, d, kpool + (prow + (size_t)c * KV) * DK + d);
+        tile.Ks[c * Tile::KS + d] = page_elem<T, BITS, DK>(
+            kpool + (prow + (size_t)c * KV) * SK, BITS ? kscale[srow + c] : 0.f,
+            d);
       }
       for (int idx = tid; idx < BK * DV; idx += Tile::NT) {
         const int c = idx / DV, d = idx % DV;
-        tile.stage_v_elem(c, d, vpool + (prow + (size_t)c * KV) * DV + d);
+        tile.Vs[c * DV + d] = page_elem<T, BITS, DV>(
+            vpool + (prow + (size_t)c * KV) * SV, BITS ? vscale[srow + c] : 0.f,
+            d);
       }
       __syncthreads();
       tile.step(kbase, BK, my_qpos, kvs, row_valid);
@@ -114,54 +134,69 @@ paged_partials_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
   }
 }
 
-template <typename T, int DK, int DV, int BQ>
-int launch(const void* q, const void* kp, const void* vp, const int* tbl,
-           const int* qpos, const int* kvv, float* m, float* l, float* acc,
-           int B, int Sq, int H, int KV, int ps, int P, int pps, int n_splits,
-           cudaStream_t stream) {
+template <typename T, int BITS, int DK, int DV, int BQ>
+int launch(const void* q, const void* kp, const void* vp, const float* ks,
+           const float* vs, const int* tbl, const int* qpos, const int* kvv,
+           float* m, float* l, float* acc, int B, int Sq, int H, int KV,
+           int ps, int P, int pps, int n_splits, cudaStream_t stream) {
   using Tile = FlashTile<T, DK, DV, BQ, BK>;
+  using S = stored_t<T, BITS>;
   static bool smem_ok = false;
   const size_t smem = Tile::smem_bytes();
   cudaError_t e =
-      allow_smem(paged_partials_kernel<T, DK, DV, BQ>, smem, &smem_ok);
+      allow_smem(paged_partials_kernel<T, BITS, DK, DV, BQ>, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
   const int rows = Sq * (H / KV);
   dim3 grid((rows + BQ - 1) / BQ, n_splits, B * KV);
-  paged_partials_kernel<T, DK, DV, BQ><<<grid, Tile::NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), tbl, qpos, kvv, m, l, acc, Sq, H, KV, ps, P,
-      pps, n_splits, 1.f / sqrtf((float)DK));
+  paged_partials_kernel<T, BITS, DK, DV, BQ><<<grid, Tile::NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const S*>(kp),
+      static_cast<const S*>(vp), ks, vs, tbl, qpos, kvv, m, l, acc, Sq, H, KV,
+      ps, P, pps, n_splits, 1.f / sqrtf((float)DK));
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DK, int DV>
-int pick_bq(const void* q, const void* kp, const void* vp, const int* tbl,
-            const int* qpos, const int* kvv, float* m, float* l, float* acc,
-            int B, int Sq, int H, int KV, int ps, int P, int pps, int ns,
-            cudaStream_t s) {
+// Everything a launch takes besides its compile-time shape.
+struct Args {
+  const void *q, *kp, *vp;
+  const float *ks, *vs;
+  const int *tbl, *qpos, *kvv;
+  float *m, *l, *acc;
+  int B, Sq, H, KV, ps, P, pps, ns;
+  cudaStream_t s;
+};
+
+template <typename T, int BITS, int DK, int DV>
+int pick_bq(const Args& a) {
+#define LAUNCH(BQ_)                                                          \
+  return launch<T, BITS, DK, DV, BQ_>(a.q, a.kp, a.vp, a.ks, a.vs, a.tbl,    \
+                                      a.qpos, a.kvv, a.m, a.l, a.acc, a.B,   \
+                                      a.Sq, a.H, a.KV, a.ps, a.P, a.pps,     \
+                                      a.ns, a.s);
   // decode rows (Sq * G) rarely fill a 64-row tile: use 16-row blocks
-  if (Sq * (H / KV) <= 16)
-    return launch<T, DK, DV, 16>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq,
-                                 H, KV, ps, P, pps, ns, s);
-  return launch<T, DK, DV, 64>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq, H,
-                               KV, ps, P, pps, ns, s);
+  if (a.Sq * (a.H / a.KV) <= 16) LAUNCH(16)
+  LAUNCH(64)
+#undef LAUNCH
 }
 
-// (dk, dv) pairs: dk = dv heads, and MLA's expanded window (192, 128).
+// fp (dk, dv) pairs: dk = dv heads, and MLA's expanded window (192, 128).
 template <typename T>
-int dispatch_dh(int dk, int dv, const void* q, const void* kp, const void* vp,
-                const int* tbl, const int* qpos, const int* kvv, float* m,
-                float* l, float* acc, int B, int Sq, int H, int KV, int ps,
-                int P, int pps, int ns, cudaStream_t s) {
-#define PICK(DK_, DV_)                                                       \
-  if (dk == DK_ && dv == DV_)                                                \
-    return pick_bq<T, DK_, DV_>(q, kp, vp, tbl, qpos, kvv, m, l, acc, B, Sq, \
-                                H, KV, ps, P, pps, ns, s);
+int dispatch_dh(int dk, int dv, const Args& a) {
+#define PICK(DK_, DV_) \
+  if (dk == DK_ && dv == DV_) return pick_bq<T, 0, DK_, DV_>(a);
   PICK(32, 32)
   PICK(64, 64)
   PICK(128, 128)
   PICK(192, 128)
 #undef PICK
+  return (int)cudaErrorInvalidValue;
+}
+
+// Quantized pools: qwen2.5-3b's head width, int8 or int4 rows.
+template <typename T>
+int dispatch_quant(int dh, int bits, const Args& a) {
+  if (dh != 128) return (int)cudaErrorInvalidValue;
+  if (bits == 8) return pick_bq<T, 8, 128, 128>(a);
+  if (bits == 4) return pick_bq<T, 4, 128, 128>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -176,20 +211,39 @@ extern "C" int paged_flash_decode_partials(
     int dtype, void* stream) {
   if (B == 0 || Sq == 0 || P == 0) return 0;
   if (ps % BK != 0 || pages_per_split < 1) return (int)cudaErrorInvalidValue;
-  const int ns = (P + pages_per_split - 1) / pages_per_split;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* t = static_cast<const int*>(tbl);
-  const int* qp = static_cast<const int*>(qpos);
-  const int* kv = static_cast<const int*>(kv_valid);
-  float* mf = static_cast<float*>(m);
-  float* lf = static_cast<float*>(l);
-  float* af = static_cast<float*>(acc);
-  if (dtype == 0)
-    return dispatch_dh<float>(dk, dv, q, k_pool, v_pool, t, qp, kv, mf, lf, af,
-                              B, Sq, H, KV, ps, P, pages_per_split, ns, s);
-  if (dtype == 1)
-    return dispatch_dh<__nv_bfloat16>(dk, dv, q, k_pool, v_pool, t, qp, kv, mf,
-                                      lf, af, B, Sq, H, KV, ps, P,
-                                      pages_per_split, ns, s);
+  const Args a{q, k_pool, v_pool, nullptr, nullptr,
+               static_cast<const int*>(tbl), static_cast<const int*>(qpos),
+               static_cast<const int*>(kv_valid), static_cast<float*>(m),
+               static_cast<float*>(l), static_cast<float*>(acc), B, Sq, H, KV,
+               ps, P, pages_per_split,
+               (P + pages_per_split - 1) / pages_per_split,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return dispatch_dh<float>(dk, dv, a);
+  if (dtype == 1) return dispatch_dh<__nv_bfloat16>(dk, dv, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The quantized pools: k_pool / v_pool int8 rows of dh * bits / 8 bytes a
+// (page row, KV head), k_scale / v_scale (N, ps) float32; bits 8 or 4;
+// dtype (0 = float32, 1 = bfloat16) is the queries' and the dequantized
+// rows' type.  dh must be 128; otherwise as above.
+extern "C" int paged_flash_decode_partials_quant(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* tbl,
+    const void* qpos, const void* kv_valid, void* m, void* l, void* acc, int B,
+    int Sq, int H, int KV, int dh, int ps, int P, int pages_per_split,
+    int bits, int dtype, void* stream) {
+  if (B == 0 || Sq == 0 || P == 0) return 0;
+  if (ps % BK != 0 || pages_per_split < 1) return (int)cudaErrorInvalidValue;
+  const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(tbl), static_cast<const int*>(qpos),
+               static_cast<const int*>(kv_valid), static_cast<float*>(m),
+               static_cast<float*>(l), static_cast<float*>(acc), B, Sq, H, KV,
+               ps, P, pages_per_split,
+               (P + pages_per_split - 1) / pages_per_split,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return dispatch_quant<float>(dh, bits, a);
+  if (dtype == 1) return dispatch_quant<__nv_bfloat16>(dh, bits, a);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,12 +12,14 @@ For each window it prints one JSON line: host wall ms per tick, device
 busy ms per tick (the profiler's summed device time of kernels and
 copies), the device's idle share, host op and stream-sync counts per
 tick, and the device ops that took the most time.  Needs one card.
-``--quant`` packs the weights first (as the serving launcher does).
+``--quant`` packs the weights first (as the serving launcher does);
+``--kv-bits 8`` or ``4`` stores the KV pool as int8 or int4 pages.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --ticks 8
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch deepseek-v2-lite-dense
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --quant w4a16
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --kv-bits 4
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
-from repro_torch.launch.serve import QUANT_CHOICES, parse_quant
+from repro_torch.launch.serve import QUANT_CHOICES, kv_format, parse_quant
 from repro_torch.models.common import require_device
 from repro_torch.models.model import init_params, quantize_for_serving
 from repro_torch.serve import Request, ServeConfig, ServingEngine
@@ -86,6 +88,7 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--ticks", type=int, default=8)
     ap.add_argument("--quant", default="none", choices=QUANT_CHOICES)
+    ap.add_argument("--kv-bits", type=int, default=0, choices=[0, 8, 4])
     args = ap.parse_args(argv)
     dev = require_device("cuda")
     card = subprocess.run(
@@ -99,7 +102,8 @@ def main(argv=None):
         cfg = cfg.with_(quant=parse_quant(args.quant))
         params, _ = quantize_for_serving(cfg, params)
     sc = ServeConfig(max_batch=8, max_prompt=256, page_size=16,
-                     max_seq=2048, max_new_tokens=4 * args.ticks + 8)
+                     max_seq=2048, max_new_tokens=4 * args.ticks + 8,
+                     kv_format=kv_format(args.kv_bits))
     rng = np.random.RandomState(0)
     for profiled in (False, True):
         eng = ServingEngine(cfg, params, sc, device=dev)
@@ -108,6 +112,8 @@ def main(argv=None):
             eng.submit(Request(i, [int(t) for t in
                                    rng.randint(0, cfg.vocab_size, 700)]))
         out = {"card": card, "arch": cfg.name, "quant": args.quant,
+               "kv_format": sc.kv_format,
+               "pool_bytes": eng.pool_bytes_per_shard(),
                "profiled": profiled}
         out["prefill"] = _window(eng, 3, profiled)      # 3 chunks of 256
         if eng.sched.has_prefill_work():

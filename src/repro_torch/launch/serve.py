@@ -7,7 +7,9 @@ per-request TTFT (in engine ticks), the deadline ledger and the engine's
 kernel-launch counts.  Weights are random, from ``init_params`` with a
 seeded ``torch.Generator``; ``--quant`` packs them with
 ``quantize_for_serving`` (w8a8 / w4a8: the integer matmul kernel;
-w4a16 / w2a16: the weight-only one).
+w4a16 / w2a16: the weight-only one).  ``--kv-bits 8`` or ``4`` stores the
+KV pool's pages as int8 or int4 with a float32 scale a row
+(``ServeConfig.kv_format``; the quantized paged kernels).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --device cuda --requests 6
@@ -15,6 +17,8 @@ w4a16 / w2a16: the weight-only one).
       --reduce --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --quant w4a16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+      deepseek-v2-lite-dense --kv-bits 4
 """
 from __future__ import annotations
 
@@ -44,6 +48,11 @@ def parse_quant(name: str):
     return QuantConfig(mode=mode, a_bits=a, w_bits=w)
 
 
+def kv_format(bits: int) -> str:
+    """``--kv-bits`` as ``ServeConfig.kv_format``: 0 -> 'fp'."""
+    return "fp" if bits == 0 else f"int{bits}"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=all_archs())
@@ -52,6 +61,10 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=2)
+    ap.add_argument("--kv-bits", type=int, default=0, choices=[0, 8, 4],
+                    help="KV pool page storage: 0 = model dtype (the "
+                    "default), 8/4 = int8/int4 pages with per-row scales "
+                    "(ServeConfig.kv_format)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu' "
                     "(the kernels' plain PyTorch versions)")
@@ -78,8 +91,12 @@ def main(argv=None):
                                 rng.randint(0, cfg.vocab_size, n)],
                             priority=prio, ttft_deadline=deadline))
     sc = ServeConfig(max_batch=args.max_batch, max_prompt=32,
-                     max_new_tokens=args.max_new_tokens)
+                     max_new_tokens=args.max_new_tokens,
+                     kv_format=kv_format(args.kv_bits))
     eng = ServingEngine(cfg, params, sc, device=dev)
+    if sc.kv_format != "fp":
+        print(f"KV pool pages stored as {sc.kv_format} "
+              f"({eng.pool_bytes_per_shard() / 1e3:.1f}KB pool)")
     handles = [eng.submit(r) for r in reqs]
 
     demo = next((h for h in handles if h.req.priority > 0), handles[0])

@@ -13,8 +13,16 @@ the two kernels instead, by default, on every dispatch.
     flash-decode kernel through the page table, followed by the
     reference's combine :func:`_combine_page_partials`.
 
+A QUANTIZED pool (``ServeConfig.kv_format`` int8/int4: int8 ``k``/``v``
+pools with ``k_scale``/``v_scale`` row scales, recognised by its leaves,
+:func:`cache_page_format`) quantizes the new rows once as it writes them
+and runs the quantized paged kernel, which dequantizes each page as it
+reads it.  Its fresh chunks run as a resume at offset 0, as the
+reference's do: every K/V row a query sees then comes back from the pool,
+so the logits do not depend on how a prompt was chunked or shared.
+
 The pool is written in place (:func:`~repro_torch.models.common.
-paged_scatter`).
+paged_scatter`, :func:`~repro_torch.models.common.paged_scatter_quant`).
 """
 from __future__ import annotations
 
@@ -22,11 +30,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.pageformat import FP, format_for_packed
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_flash_decode import paged_flash_decode_partials
 from repro_torch.models.common import (ParamSpec, broadcast_offset,
                                        chunk_lengths, chunk_valid_mask, dense,
-                                       paged_scatter, rope)
+                                       paged_scatter, paged_scatter_quant,
+                                       rope)
 
 NEG_INF = -1e30
 # Bytes the float32 partials of one dispatch may take.  Per-page partials
@@ -53,12 +63,40 @@ def attn_specs(cfg) -> dict:
     return specs
 
 
-def paged_kv_cache_spec(cfg, num_pages: int, page_size: int) -> dict:
+def paged_kv_cache_spec(cfg, num_pages: int, page_size: int,
+                        fmt=FP) -> dict:
     """One (num_pages, page_size, KV, dh) pool per layer shared by every
-    slot (fp storage), mapped through the engine's per-slot page table."""
+    slot, mapped through the engine's per-slot page table.  A quantized
+    ``fmt`` (:mod:`repro_torch.core.pageformat`) stores int8 pools of
+    last dim ``fmt.packed_feat(dh)`` and adds ``k_scale``/``v_scale``,
+    (num_pages, page_size) float32 row scales on the same page axis."""
     kv, dh = cfg.n_kv_heads, cfg.head_dim
-    return {"k": ParamSpec((num_pages, page_size, kv, dh), init="zeros"),
-            "v": ParamSpec((num_pages, page_size, kv, dh), init="zeros")}
+    if not fmt.quantized:
+        return {"k": ParamSpec((num_pages, page_size, kv, dh), init="zeros"),
+                "v": ParamSpec((num_pages, page_size, kv, dh), init="zeros")}
+    dp = fmt.packed_feat(dh)
+    return {
+        "k": ParamSpec((num_pages, page_size, kv, dp), init="zeros",
+                       dtype=torch.int8),
+        "v": ParamSpec((num_pages, page_size, kv, dp), init="zeros",
+                       dtype=torch.int8),
+        "k_scale": ParamSpec((num_pages, page_size), init="zeros",
+                             dtype=torch.float32),
+        "v_scale": ParamSpec((num_pages, page_size), init="zeros",
+                             dtype=torch.float32),
+    }
+
+
+def cache_page_format(cache: dict, full_feat: int):
+    """A paged cache's storage format, or None for fp: a scale leaf
+    beside the pool marks it quantized, and the ratio of the full
+    feature width to the stored last dim names the bits."""
+    key = "k_scale" if "k_scale" in cache else \
+        ("ckv_scale" if "ckv_scale" in cache else None)
+    if key is None:
+        return None
+    pool = cache["ckv"] if key == "ckv_scale" else cache["k"]
+    return format_for_packed(full_feat, pool.shape[-1])
 
 
 def _pages_per_split(b: int, sq: int, hq: int, p: int, dv: int) -> int:
@@ -70,13 +108,15 @@ def _pages_per_split(b: int, sq: int, hq: int, p: int, dv: int) -> int:
     return -(-p // n_split)
 
 
-def _page_partials(q, k_pool, v_pool, tbl, qpos, kv_valid):
+def _page_partials(q, k_pool, v_pool, tbl, qpos, kv_valid, **quant):
     """Flash partials of ``q`` against the pool through ``tbl``: m, l
-    (B, Sq, KV, G, S) and acc (..., S, dv) over S page splits."""
+    (B, Sq, KV, G, S) and acc (..., S, dv) over S page splits.
+    ``quant``: a quantized pool's ``k_scale``, ``v_scale`` and ``bits``."""
     b, sq, hq, _ = q.shape
-    c = _pages_per_split(b, sq, hq, tbl.shape[1], v_pool.shape[-1])
+    dv = v_pool.shape[-1] * (8 // quant["bits"] if quant else 1)
+    c = _pages_per_split(b, sq, hq, tbl.shape[1], dv)
     return paged_flash_decode_partials(k_pool, v_pool, q, tbl, qpos,
-                                       kv_valid, pages_per_split=c)
+                                       kv_valid, pages_per_split=c, **quant)
 
 
 def _combine_page_partials(m, l, acc):
@@ -89,13 +129,23 @@ def _combine_page_partials(m, l, acc):
     return accg / torch.clamp(lg, min=1e-30)[..., None]
 
 
-def _paged_attend(q, k, v, cache, pages, t, ok, qpos, kv_valid):
+def _paged_attend(q, k, v, cache, pages, t, ok, qpos, kv_valid, fmt):
     """Scatter the new rows at logical positions ``t`` (where ``ok``),
-    then attend ``q`` over the slots' cached windows through the table."""
-    paged_scatter(cache["k"], pages, k, t, ok)
-    paged_scatter(cache["v"], pages, v, t, ok)
+    quantized when the pool's format ``fmt`` is (None = fp), then attend
+    ``q`` over the slots' cached windows through the table."""
+    quant = {}
+    if fmt is None:
+        paged_scatter(cache["k"], pages, k, t, ok)
+        paged_scatter(cache["v"], pages, v, t, ok)
+    else:
+        paged_scatter_quant(cache["k"], cache["k_scale"], pages, k, t, ok,
+                            fmt)
+        paged_scatter_quant(cache["v"], cache["v_scale"], pages, v, t, ok,
+                            fmt)
+        quant = dict(k_scale=cache["k_scale"], v_scale=cache["v_scale"],
+                     bits=fmt.bits)
     m, l, acc = _page_partials(q, cache["k"], cache["v"], pages, qpos,
-                               kv_valid)
+                               kv_valid, **quant)
     o = _combine_page_partials(m, l, acc)
     b, sq = q.shape[:2]
     return o.reshape(b, sq, -1, o.shape[-1]).to(q.dtype)
@@ -112,7 +162,8 @@ def apply_attention(p, x: torch.Tensor, cfg, *, cache: dict, mode: str,
     [0, len); with a (B,) ``offset`` at [offset, offset + len), attending
     the cached history [0, offset) too.  mode 'decode': ``pos`` is the (B,)
     row of each slot's token (-1 = inactive slot).  ``pages``: (B, P) int32
-    page table into ``cache`` = {"k", "v"} pools of (N, ps, KV, dh), which
+    page table into ``cache`` = {"k", "v"} pools of (N, ps, KV, dh) (a
+    quantized pool: int8 pools and their ``k_scale``/``v_scale``), which
     are updated in place and returned."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -139,18 +190,22 @@ def apply_attention(p, x: torch.Tensor, cfg, *, cache: dict, mode: str,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    if mode == "chunk" and offset is None:
+    fmt = cache_page_format(cache, dh)
+    if mode == "chunk" and offset is None and fmt is None:
         # fresh chunk: one causal pass over the padded chunk (padded
         # queries sit after every valid token, so they never leak into
-        # valid outputs), then the valid rows go into the pool.
+        # valid outputs), then the valid rows go into the pool.  A
+        # quantized pool takes the next branch at offset 0 instead, so
+        # that the chunk's own rows are read back quantized too.
         o = flash_attention(q, k, v, kv_valid=s)
         paged_scatter(cache["k"], pages, k, positions, ok)
         paged_scatter(cache["v"], pages, v, positions, ok)
     elif mode == "chunk":
         o = _paged_attend(q, k, v, cache, pages, positions, ok, positions,
-                          off_b + len_b)
+                          off_b + len_b, fmt)
     else:
         t = pos_b[:, None]
-        o = _paged_attend(q, k, v, cache, pages, t, t >= 0, t, pos_b + 1)
+        o = _paged_attend(q, k, v, cache, pages, t, t >= 0, t, pos_b + 1,
+                          fmt)
     y = dense(o.reshape(b, s, h * dh), p["wo"], cfg.quant)
     return y, cache

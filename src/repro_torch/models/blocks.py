@@ -138,7 +138,8 @@ class MlaMlpBlock(AttnMlpBlock):
     attend = staticmethod(apply_mla)
 
 
-# block kind -> (param specs, paged cache spec, module)
+# block kind -> (param specs, paged cache spec (cfg, num_pages, page_size,
+# fmt), module)
 BLOCKS = {
     "attn_mlp": (attn_mlp_specs, paged_kv_cache_spec, AttnMlpBlock),
     "mla_mlp": (mla_mlp_specs, paged_mla_cache_spec, MlaMlpBlock),

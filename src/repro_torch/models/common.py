@@ -11,8 +11,9 @@ so parity tests bridge the JAX weights instead (:mod:`repro_torch.weights`).
 ``dense`` honours the quantization format: a :class:`~repro_torch.kernels.
 ops.PackedWeight` (made by ``quantize_for_serving``) runs the packed matmul
 kernels.  Norms, RoPE and the SiLU gate are computed in float32 and cast
-back, as the reference does.  ``paged_scatter`` writes the pool IN PLACE (JAX
-returns a new array; here the pool is a tensor the engine owns).
+back, as the reference does.  ``paged_scatter`` (and its quantized twin
+``paged_scatter_quant``) writes the pool IN PLACE (JAX returns a new
+array; here the pool is a tensor the engine owns).
 """
 from __future__ import annotations
 
@@ -133,6 +134,37 @@ def paged_gather(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
     return flat[idx.reshape(pages.shape[0], -1)]
 
 
+def _scatter_index(pool_shape, pages: torch.Tensor, t: torch.Tensor,
+                   valid: torch.Tensor):
+    """(dest, sel) of a paged scatter: ``sel`` the flat (B*S) indices of
+    the rows that are written and ``dest`` their flat pool rows.  Rows
+    that are invalid, negative, past the slot's logical window or under
+    an unmapped (-1) entry are left out, as the reference's
+    ``mode="drop"`` scatter drops them.  One ``nonzero`` (a host sync)
+    however many leaves the index then writes."""
+    ps = pool_shape[1]
+    p = pages.shape[1]
+    t = t.to(torch.int64)
+    page = torch.gather(pages.to(torch.int64), 1,
+                        torch.clamp(torch.div(t, ps, rounding_mode="floor"),
+                                    0, p - 1))
+    ok = valid & (page >= 0) & (t >= 0) & (t < p * ps)
+    sel = ok.reshape(-1).nonzero().squeeze(1)
+    dest = (page * ps + torch.remainder(t, ps)).reshape(-1)[sel]
+    return dest, sel
+
+
+def _put(pool: torch.Tensor, index, rows: torch.Tensor) -> torch.Tensor:
+    """Write ``rows`` (B, S, *rest) into ``pool`` (N, ps, *rest) at a
+    :func:`_scatter_index`, in place."""
+    dest, sel = index
+    n, ps = pool.shape[:2]
+    rest = tuple(pool.shape[2:])
+    flat = pool.view((n * ps,) + rest)
+    flat[dest] = rows.reshape((-1,) + rest)[sel].to(pool.dtype)
+    return pool
+
+
 def paged_scatter(pool: torch.Tensor, pages: torch.Tensor,
                   rows: torch.Tensor, t: torch.Tensor,
                   valid: torch.Tensor) -> torch.Tensor:
@@ -144,17 +176,34 @@ def paged_scatter(pool: torch.Tensor, pages: torch.Tensor,
     positions; ``valid``: (B, S) bool.  Writes that are invalid, negative,
     past the slot's logical window, or land on an unmapped (-1) entry are
     dropped, as the reference's ``mode="drop"`` scatter drops them."""
-    n, ps = pool.shape[:2]
-    p = pages.shape[1]
-    t = t.to(torch.int64)
-    page = torch.gather(pages.to(torch.int64), 1,
-                        torch.clamp(torch.div(t, ps, rounding_mode="floor"),
-                                    0, p - 1))
-    ok = valid & (page >= 0) & (t >= 0) & (t < p * ps)
-    dest = (page * ps + torch.remainder(t, ps))[ok]
-    flat = pool.view((n * ps,) + tuple(pool.shape[2:]))
-    flat[dest] = rows[ok].to(pool.dtype)
-    return pool
+    return _put(pool, _scatter_index(pool.shape, pages, t, valid), rows)
+
+
+def paged_scatter_quant(pool: torch.Tensor, scales: torch.Tensor,
+                        pages: torch.Tensor, rows: torch.Tensor,
+                        t: torch.Tensor, valid: torch.Tensor, fmt):
+    """:func:`paged_scatter` for a QUANTIZED pool, in place: quantize
+    ``rows`` (one absmax scale a row, packed per ``fmt``, a
+    :class:`~repro_torch.core.pageformat.PageFormat`) and write the bytes
+    into ``pool`` and the float32 row scales into the pool-shaped
+    ``scales`` (num_pages, page_size) through one destination index, so a
+    quantized leaf costs the host sync of an fp one.  A row's bytes
+    depend only on its own values, so rewriting identical rows (resume,
+    copy-on-write refill) reproduces identical pool bytes.  Returns
+    (pool, scales)."""
+    q, s = fmt.quantize_rows(rows)
+    index = _scatter_index(pool.shape, pages, t, valid)
+    return _put(pool, index, q), _put(scales, index, s)
+
+
+def paged_gather_quant(pool: torch.Tensor, scales: torch.Tensor,
+                       pages: torch.Tensor, fmt, dtype) -> torch.Tensor:
+    """Gather and dequantize each slot's window out of a quantized pool:
+    (B, P*page_size, *rest) rows of ``dtype``.  Rows under unmapped
+    entries are garbage, as in :func:`paged_gather`, and MUST be masked
+    by the caller."""
+    return fmt.dequantize(paged_gather(pool, pages),
+                          paged_gather(scales, pages), dtype)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,

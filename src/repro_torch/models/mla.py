@@ -1,8 +1,8 @@
 """Multi-head Latent Attention (DeepSeek-V2) over the paged latent pool.
 
-The counterpart of ``repro.models.mla`` for paged fp serving on one
-device.  The cache keeps one latent row per token and layer, the
-normalised ``c_kv`` (kv_lora_rank wide) followed by the roped ``k_rope``
+The counterpart of ``repro.models.mla`` for paged serving on one device.
+The cache keeps one latent row per token and layer, the normalised
+``c_kv`` (kv_lora_rank wide) followed by the roped ``k_rope``
 (qk_rope_dim wide): 576 values at deepseek-v2's widths, against 2 * H *
 dh = 4096 for full K/V.  Three modes, each on a hand-written kernel:
 
@@ -20,11 +20,18 @@ dh = 4096 for full K/V.  Three modes, each on a hand-written kernel:
     (``q_c``) and runs the compressed-space MLA kernel against the latent
     pool itself; W_UV is applied to the combined context afterwards.
 
+A QUANTIZED latent pool (``ServeConfig.kv_format`` int8/int4: an int8
+``ckv`` and a ``ckv_scale`` of row scales, one a row for c_kv and k_rope
+alike) quantizes each latent row once as it writes it.  Decode runs the
+quantized MLA kernel, which dequantizes each page as it reads it; a
+resumed chunk gathers and dequantizes the window before expanding it; a
+fresh chunk runs as a resume at offset 0, as the reference's does, so
+that every latent row a query sees comes back from the pool.
+
 The small absorbed einsums and every projection stay ``torch`` matmuls,
 as the reference leaves them to XLA outside its kernels.  The pool is
 written in place.  The reference's contiguous 'prefill'/'train' modes
-and quantized latent pools are not in this slice and raise, naming the
-ROADMAP item.
+are not in this slice and raise, naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,14 +39,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.pageformat import FP
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_flash_decode import mla_paged_decode_partials
 from repro_torch.models.attention import (_combine_page_partials,
-                                          _page_partials, _pages_per_split)
+                                          _page_partials, _pages_per_split,
+                                          cache_page_format)
 from repro_torch.models.common import (ParamSpec, broadcast_offset,
                                        chunk_lengths, chunk_valid_mask, dense,
-                                       paged_gather, paged_scatter, rms_norm,
-                                       rope)
+                                       paged_gather, paged_gather_quant,
+                                       paged_scatter, paged_scatter_quant,
+                                       rms_norm, rope)
 
 
 def mla_dims(cfg):
@@ -61,15 +71,31 @@ def mla_specs(cfg) -> dict:
 
 
 def paged_mla_cache_spec(cfg, num_pages: int, page_size: int,
-                         kv_format: str = "fp") -> dict:
+                         fmt=FP) -> dict:
     """One (num_pages, page_size, r + dr) latent pool per layer, shared by
-    every slot and mapped through the engine's per-slot page table."""
-    if kv_format != "fp":
-        raise ValueError(f"{cfg.name}: kv_format {kv_format!r}: the "
-                         "quantized latent pool is not in this slice of the "
-                         "port (ROADMAP queue 1 item 10)")
+    every slot and mapped through the engine's per-slot page table.  A
+    quantized ``fmt`` stores an int8 pool of last dim
+    ``fmt.packed_feat(r + dr)`` and a ``ckv_scale`` of (num_pages,
+    page_size) float32 row scales on the same page axis."""
     r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
-    return {"ckv": ParamSpec((num_pages, page_size, r + dr), init="zeros")}
+    if not fmt.quantized:
+        return {"ckv": ParamSpec((num_pages, page_size, r + dr),
+                                 init="zeros")}
+    return {
+        "ckv": ParamSpec((num_pages, page_size, fmt.packed_feat(r + dr)),
+                         init="zeros", dtype=torch.int8),
+        "ckv_scale": ParamSpec((num_pages, page_size), init="zeros",
+                               dtype=torch.float32),
+    }
+
+
+def _write(cache, pages, entry, t, ok, fmt):
+    """Scatter latent rows into the pool (quantized when it is)."""
+    if fmt is None:
+        paged_scatter(cache["ckv"], pages, entry, t, ok)
+    else:
+        paged_scatter_quant(cache["ckv"], cache["ckv_scale"], pages, entry,
+                            t, ok, fmt)
 
 
 def _compress(p, x, cfg):
@@ -92,14 +118,18 @@ def _expand(p, c, k_rope, cfg):
     return k.contiguous(), v.contiguous()
 
 
-def _resume(p, qq, cache, pages, entry, t, ok, off_b, len_b, cfg):
+def _resume(p, qq, cache, pages, entry, t, ok, off_b, len_b, cfg, fmt):
     """Resumed chunk: scatter the chunk's latent rows, expand the slot's
-    cached window (history and this chunk) through W_UK / W_UV, and
-    attend it with absolute causal masking through the paged kernel."""
+    cached window (history and this chunk; dequantized first from a
+    quantized pool) through W_UK / W_UV, and attend it with absolute
+    causal masking through the paged kernel."""
     b, s = qq.shape[:2]
     r = cfg.kv_lora_rank
-    pool = paged_scatter(cache["ckv"], pages, entry, t, ok)
-    buf = paged_gather(pool, pages)                     # (B, P*ps, r + dr)
+    _write(cache, pages, entry, t, ok, fmt)
+    pool = cache["ckv"]
+    buf = (paged_gather(pool, pages) if fmt is None else     # (B, P*ps, r+dr)
+           paged_gather_quant(pool, cache["ckv_scale"], pages, fmt,
+                              entry.dtype))
     k_w, v_w = _expand(p, buf[..., :r], buf[..., r:], cfg)
     n_pg, ps = pages.shape[1], pool.shape[1]
     # the expanded window as pools of B*P pages, page b*P + j holding
@@ -117,22 +147,25 @@ def _resume(p, qq, cache, pages, entry, t, ok, off_b, len_b, cfg):
     return o.reshape(b, s, cfg.n_heads, -1).to(qq.dtype)
 
 
-def _decode(p, q_nope, q_rope, cache, pages, entry, pos_b, x_dtype, cfg):
+def _decode(p, q_nope, q_rope, cache, pages, entry, pos_b, x_dtype, cfg,
+            fmt):
     """Decode: scatter the latent row at ``pos`` (-1 = no write), absorb
     W_UK into the query, attend the latent pool in the compressed space
-    with the MLA kernel, combine, and apply W_UV.  Returns (B, 1, H, dv)
-    in the activation type."""
+    with the MLA kernel (its quantized entry on a quantized pool),
+    combine, and apply W_UV.  Returns (B, 1, H, dv) in the activation
+    type."""
     b, s, h, _ = q_nope.shape
     r = cfg.kv_lora_rank
     dn, dr, dv = mla_dims(cfg)
-    pool = paged_scatter(cache["ckv"], pages, entry, pos_b[:, None],
-                         (pos_b >= 0)[:, None])
+    _write(cache, pages, entry, pos_b[:, None], (pos_b >= 0)[:, None], fmt)
+    quant = ({} if fmt is None else
+             dict(scale_pool=cache["ckv_scale"], bits=fmt.bits))
     w_uk = p["w_uk"].reshape(r, h, dn)
     q_c = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_uk.float())
     c = _pages_per_split(b, s, h, pages.shape[1], r)
     m, l, acc = mla_paged_decode_partials(
-        pool, q_c.to(x_dtype).contiguous(), q_rope.contiguous(), pages,
-        pos_b, r, dn + dr, pages_per_split=c)
+        cache["ckv"], q_c.to(x_dtype).contiguous(), q_rope.contiguous(),
+        pages, pos_b, r, dn + dr, pages_per_split=c, **quant)
     ctx_c = _combine_page_partials(m, l, acc)           # (B, 1, H, r) f32
     w_uv = p["w_uv"].reshape(r, h, dv)
     return torch.einsum("bqhr,rhv->bqhv", ctx_c, w_uv.float()).to(x_dtype)
@@ -142,7 +175,8 @@ def apply_mla(p, x: torch.Tensor, cfg, *, cache: dict, mode: str, pos,
               pages: torch.Tensor, offset: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, dict]:
     """MLA sublayer over the paged latent pool ``cache`` = {"ckv": (N, ps,
-    r + dr)}, updated in place and returned.
+    r + dr)} (a quantized pool: an int8 ``ckv`` and its ``ckv_scale``),
+    updated in place and returned.
 
     mode 'chunk': ``pos`` is the (B,) valid length of a right-padded chunk
     (0 = inactive slot); without ``offset`` its tokens sit at rows [0,
@@ -177,10 +211,12 @@ def apply_mla(p, x: torch.Tensor, cfg, *, cache: dict, mode: str, pos,
     k_rope = rope(k_r[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
     entry = torch.cat([c_kv, k_rope], dim=-1)           # (B, S, r + dr)
 
-    if mode == "chunk" and offset is None:
+    fmt = cache_page_format(cache, cfg.kv_lora_rank + dr)
+    if mode == "chunk" and offset is None and fmt is None:
         # fresh chunk: naive form over the chunk's own rows (padded
         # queries sit after every valid token, so they never leak into
-        # valid outputs), then the valid latent rows go into the pool
+        # valid outputs), then the valid latent rows go into the pool.  A
+        # quantized pool takes the next branch at offset 0 instead.
         k, v = _expand(p, c_kv, k_rope, cfg)
         qq = torch.cat([q_nope, q_rope], dim=-1).contiguous()
         o = flash_attention(qq, k, v, kv_valid=s)
@@ -188,9 +224,9 @@ def apply_mla(p, x: torch.Tensor, cfg, *, cache: dict, mode: str, pos,
     elif mode == "chunk":
         qq = torch.cat([q_nope, q_rope], dim=-1).contiguous()
         o = _resume(p, qq, cache, pages, entry, positions, ok, off_b, len_b,
-                    cfg)
+                    cfg, fmt)
     else:
         o = _decode(p, q_nope, q_rope, cache, pages, entry, pos_b, x.dtype,
-                    cfg)
+                    cfg, fmt)
     y = dense(o.reshape(b, s, h * dv), p["w_o"], cfg.quant)
     return y, cache

@@ -10,8 +10,10 @@ raise.
 The paged cache keeps the reference's layout, one pool per stage with the
 page axis at 1: leaves ``k``/``v`` (layers, num_pages, page_size, KV, dh)
 for GQA, ``ckv`` (layers, num_pages, page_size, r + dr) for MLA, so later
-swap and wire slices move the same bytes.  ``forward`` updates the pools
-in place.
+swap and wire slices move the same bytes.  A quantized ``kv_format``
+stores those pools as int8 (int4 packed two a byte) with (layers,
+num_pages, page_size) float32 scale leaves ``k_scale``/``v_scale`` or
+``ckv_scale``.  ``forward`` updates the pools in place.
 
   mode='chunk'  — chunked prefill: ``pos`` is the (B,) valid length of a
                   right-padded chunk (0 = inactive slot); with ``offset``
@@ -31,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.core.pageformat import get_format
 from repro_torch.kernels.ops import PackedWeight, prepare_weight
 from repro_torch.models.blocks import BLOCKS, apply_norm, norm_specs
 from repro_torch.models.common import (ParamSpec, dense, embed_lookup,
@@ -69,12 +72,19 @@ def param_specs(cfg: ArchConfig) -> dict:
     }
 
 
-def cache_specs(cfg: ArchConfig, num_pages: int, page_size: int) -> list:
-    """Paged cache spec: one stage of stacked (layers, ...) pools."""
+def cache_specs(cfg: ArchConfig, num_pages: int, page_size: int,
+                kv_format: str = "fp") -> list:
+    """Paged cache spec: one stage of stacked (layers, ...) pools.
+    ``kv_format`` picks the page storage format
+    (:mod:`repro_torch.core.pageformat`): "fp" pools of the model's
+    dtype, or "int8"/"int4" int8 pools with float32 row-scale leaves;
+    each leaf keeps its own dtype."""
+    fmt = get_format(kv_format)
     n = _n_layers(cfg)
     pool_spec = BLOCKS[_block_kind(cfg)][1]
-    return [{name: ParamSpec((n,) + s.shape, init=s.init)
-             for name, s in pool_spec(cfg, num_pages, page_size).items()}]
+    return [{name: ParamSpec((n,) + s.shape, init=s.init, dtype=s.dtype)
+             for name, s in pool_spec(cfg, num_pages, page_size,
+                                      fmt).items()}]
 
 
 class Transformer(nn.Module):
@@ -148,12 +158,15 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 
 
 def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int, *,
+                     kv_format: str = "fp",
                      device="cuda") -> List[Dict[str, torch.Tensor]]:
     """Zeroed paged cache: per stage, (layers, num_pages, page_size, ...)
-    pools of the model's dtype (``cache_specs``)."""
+    pools (``cache_specs``): of the model's dtype, or for a quantized
+    ``kv_format`` int8 pools beside (layers, num_pages, page_size)
+    float32 scales."""
     dev = require_device(device)
-    return _materialize_tree(cache_specs(cfg, num_pages, page_size), None,
-                             cfg.dtype, dev)
+    return _materialize_tree(cache_specs(cfg, num_pages, page_size,
+                                         kv_format), None, cfg.dtype, dev)
 
 
 def _map_specs(spec, leaf, fn):

@@ -4,7 +4,10 @@ The counterpart of ``repro.serve.config``.  ``ServeConfig`` validates
 itself at construction and raises with the field's name on anything this
 slice of the port does not serve yet, naming the ROADMAP item (queue 1)
 that will add it.  The reference's ``use_pallas_decode`` is a TPU knob and
-has no counterpart: the CUDA kernels are always on.
+has no counterpart: the CUDA kernels are always on.  ``kv_format`` picks
+the pool's page storage (:data:`~repro_torch.core.pageformat.KV_FORMATS`):
+"fp" pages of the model's dtype, or "int8"/"int4" pages with one float32
+scale a row, served by the quantized paged kernels.
 """
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ import dataclasses
 from typing import List, Optional
 
 import numpy as np
+
+from repro_torch.core.pageformat import KV_FORMATS
 
 
 @dataclasses.dataclass
@@ -41,7 +46,7 @@ class ServeConfig:
     # resident request maps the resident's pages (copy-on-write at the
     # first divergent page) and resumes prefill at the first unshared row.
     decode_sharing: bool = False
-    kv_format: str = "fp"
+    kv_format: str = "fp"           # page storage: one of KV_FORMATS
     record_logits: bool = False     # keep per-token logits on each Request
     spill_dir: Optional[str] = None
     host_pool_pages: int = 0
@@ -71,8 +76,9 @@ class ServeConfig:
         if not self.reserve_decode_pages:
             later("reserve_decode_pages", self.reserve_decode_pages, 5,
                   "overcommit with swap preemption")
-        if self.kv_format != "fp":
-            later("kv_format", self.kv_format, 10, "the quantized KV pool")
+        if self.kv_format not in KV_FORMATS:
+            bad("kv_format", f"must be one of {KV_FORMATS}, "
+                f"got {self.kv_format!r}")
         if self.host_pool_pages:
             later("host_pool_pages", self.host_pool_pages, 14,
                   "the tiered page pool")

@@ -23,15 +23,18 @@ only on its own offset.
 Every attention dispatch runs a CUDA kernel on the card: the flash
 forward for a fresh wave, the paged flash-decode partials for a resumed
 wave and for GQA decode, and the compressed-space MLA partials for MLA
-decode.  The engine is the same for both attention kinds: it treats the
-pool leaves (``k``/``v`` or MLA's ``ckv``) alike.  A model packed by ``quantize_for_serving`` (the
-format on ``cfg.quant``) also runs every ``dense`` through the packed
-matmul kernels.  ``stats()`` reports the kernel launches of the last
+decode.  On a quantized pool (``ServeConfig.kv_format`` int8/int4) a GQA
+dispatch of every kind runs the quantized paged kernel, and MLA decode
+the quantized MLA kernel.  The engine is the same for both attention
+kinds and every format: it treats the pool leaves (``k``/``v`` or MLA's
+``ckv``, and their scale leaves) alike.  A model packed by
+``quantize_for_serving`` (the format on ``cfg.quant``) also runs every
+``dense`` through the packed matmul kernels.  ``stats()`` reports the kernel launches of the last
 dispatch and in total.
 
 Not in this slice (ServeConfig rejects them): swap preemption and
 overcommit, the tiered pool and oversized contexts, speculative decoding,
-decode twins, quantized pages, temperature sampling.
+decode twins, temperature sampling.
 """
 from __future__ import annotations
 
@@ -57,7 +60,8 @@ _DEFER = "defer"                    # admission verdict: retry after frees
 
 
 def _kernel_launches() -> int:
-    return (_flash.launches + _paged.launches + _paged.mla_launches
+    return (_flash.launches + _paged.launches + _paged.quant_launches
+            + _paged.mla_launches + _paged.mla_quant_launches
             + _mpq.launches + _mpq.reduce_launches)
 
 
@@ -122,6 +126,7 @@ class ServingEngine:
                           if serve_cfg.num_pages is not None
                           else bsz * self.pages_per_slot)
         self.cache = init_paged_cache(cfg, self.num_pages, ps,
+                                      kv_format=serve_cfg.kv_format,
                                       device=self.device)
         self._decode = make_paged_decode_step(cfg)
         self._prefill = make_paged_chunked_prefill_step(cfg)
@@ -150,6 +155,12 @@ class ServingEngine:
 
     def pages_in_use(self) -> int:
         return self.alloc.pages_in_use()
+
+    def pool_bytes_per_shard(self) -> int:
+        """Device bytes of page-pool state one pool shard holds: every
+        cache leaf, scales included.  On one device, the whole pool."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for stage in self.cache for leaf in stage.values())
 
     def stats(self) -> dict:
         return {"ticks": self.tick_no, "peak_active": self.peak_active,

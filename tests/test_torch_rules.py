@@ -10,11 +10,13 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduce_config
+from repro_torch.core.pageformat import get_format
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mpq_matmul as mm
 from repro_torch.kernels import paged_flash_decode as pfd
 from repro_torch.launch import serve as launcher
+from repro_torch.models.attention import paged_kv_cache_spec
 from repro_torch.models.mla import paged_mla_cache_spec
 from repro_torch.models.model import (init_paged_cache, init_params,
                                       quantize_for_serving)
@@ -130,7 +132,7 @@ def test_packed_matmuls_have_no_fallback_off_the_cpu():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("temperature", 0.7), ("kv_format", "int8"), ("paged", False),
+    ("temperature", 0.7), ("paged", False),
     ("host_pool_pages", 8), ("spec_draft", "self"), ("decode_sharing", True),
     ("spill_dir", "/tmp/spill"), ("reserve_decode_pages", False)])
 def test_serve_config_rejects_unserved_knobs(field, value):
@@ -190,13 +192,64 @@ def test_packed_mla_weights_are_rejected():
         quantize_for_serving(cfg, params)
 
 
+def test_unknown_kv_format_raises_naming_the_formats():
+    with pytest.raises(ValueError, match=r"ServeConfig\.kv_format must be "
+                       r"one of \('fp', 'int8', 'int4'\), got 'fp8'"):
+        ServeConfig(kv_format="fp8")
+
+
 @pytest.mark.parametrize("fmt", ["int8", "int4"])
-def test_quantized_latent_pool_is_rejected(fmt):
-    cfg = reduce_config(get_config("deepseek-v2-lite-dense"))
-    with pytest.raises(ValueError, match=r"ROADMAP queue 1 item 10"):
-        paged_mla_cache_spec(cfg, 4, 16, kv_format=fmt)
-    with pytest.raises(ValueError, match=r"ServeConfig\.kv_format .*item 10"):
-        ServeConfig(kv_format=fmt)
+def test_quantized_pools_are_served(fmt):
+    """The quantized KV pool is in the port: ServeConfig takes it, and
+    both cache specs give int8 pools beside float32 row scales."""
+    assert ServeConfig(kv_format=fmt).kv_format == fmt
+    pf = get_format(fmt)
+    for cfg, spec in (
+            (reduce_config(get_config("qwen2.5-3b")), paged_kv_cache_spec),
+            (reduce_config(get_config("deepseek-v2-lite-dense")),
+             paged_mla_cache_spec)):
+        leaves = spec(cfg, 4, 16, fmt=pf)
+        assert {k: v.dtype for k, v in leaves.items()
+                if not k.endswith("_scale")} == \
+            {k: torch.int8 for k in leaves if not k.endswith("_scale")}
+        assert [v.shape for k, v in leaves.items() if k.endswith("_scale")]
+        assert all(v.shape == (4, 16) and v.dtype == torch.float32
+                   for k, v in leaves.items() if k.endswith("_scale"))
+
+
+def _quant_operands(device):
+    """Quantized GQA (int4, dh 128) and MLA (int8) operands."""
+    z = lambda *s, dt=torch.float32: torch.zeros(  # noqa: E731
+        *s, dtype=dt, device=device)
+    gqa = (z(4, 16, 2, 64, dt=torch.int8), z(4, 16, 2, 64, dt=torch.int8),
+           z(2, 1, 4, 128), z(2, 2, dt=torch.int32),
+           z(2, 1, dt=torch.int32), z(2, dt=torch.int32))
+    mla = (z(4, 16, 576, dt=torch.int8), z(2, 1, 16, 512), z(2, 1, 16, 64),
+           z(2, 2, dt=torch.int32), z(2, dt=torch.int32))
+    return gqa, dict(k_scale=z(4, 16), v_scale=z(4, 16), bits=4), \
+        mla, dict(scale_pool=z(4, 16), bits=8)
+
+
+def test_quant_partials_on_the_cpu_never_touch_the_build(monkeypatch):
+    def no_build(*a, **k):
+        raise AssertionError("the build was reached from a CPU tensor")
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(_build, "build_all", no_build)
+    gqa, gkw, mla, mkw = _quant_operands("cpu")
+    before = (pfd.quant_launches, pfd.mla_quant_launches)
+    m, l, acc = pfd.paged_flash_decode_partials(*gqa, **gkw)
+    assert tuple(acc.shape) == (2, 1, 2, 2, 2, 128)
+    m, l, acc = pfd.mla_paged_decode_partials(*mla, 512, 192, **mkw)
+    assert tuple(acc.shape) == (2, 1, 16, 2, 512)
+    assert (pfd.quant_launches, pfd.mla_quant_launches) == before
+
+
+def test_quant_partials_have_no_fallback_off_the_cpu():
+    gqa, gkw, mla, mkw = _quant_operands("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        pfd.paged_flash_decode_partials(*gqa, **gkw)
+    with pytest.raises(ValueError, match="no kernel"):
+        pfd.mla_paged_decode_partials(*mla, 512, 192, **mkw)
 
 
 def _mla_operands(device, dtype=torch.float32):
