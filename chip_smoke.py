@@ -12,9 +12,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      bf16 and float32, at the shapes the full-width qwen2.5-3b path gives
      it (H=16, KV=2, dh=128, page 16): the flash forward at a 256-token
      prefill chunk, the paged partials at decode (Sq=1) and at a resumed
-     256-token chunk; time kernel, plain version and (flash only) the
-     library's ``scaled_dot_product_attention`` with a cold L2, beside the
-     least time the card could take;
+     256-token chunk; the bf16 flash forward (the tensor-core route) also
+     at every HEAD_DIMS pair, at that chunk and at FLASH_EDGES (1, 63, 65
+     and 188 rows, kv_valid short of the chunk, one sequence); time
+     kernel, plain version and (flash only) the library's
+     ``scaled_dot_product_attention`` with a cold L2 (see ``Timer``),
+     beside the least time the card could take;
   3. serve full-width, full-depth qwen2.5-3b in bf16 (random weights from
      ``init_params``) through ``ServingEngine.submit/tick``: 16 requests
      of 32-1024 prompt tokens (several span multiple chunks, two share a
@@ -29,9 +32,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      2048 (a prefill wave)} x (K, N) in the five projections: the integer
      kernel BITWISE (all six Table IV formats at the w_down shape, w8a8
      and w4a8 at every shape), the weight-only kernel in bf16 within one
-     bf16 step of the output's largest value (w8/w4/w2 at every shape);
-     time both beside their plain versions, their bounds and labelled
-     library yardsticks;
+     bf16 step of the output's largest value (w8/w4/w2 at every shape,
+     and at M in WO_ROWS: both tensor-core routes, ragged rows); time
+     both beside their plain versions, their bounds and labelled library
+     yardsticks;
   6. serve the same full-depth model packed by ``quantize_for_serving``
      at w4a16 and then at w8a8 with the phase-3 traffic: every request
      completes, the matmul kernels launch 7 x 36 + 1 = 253 times per
@@ -188,6 +192,8 @@ INT_FAULTS = ("per_tensor_x_scale", "no_x_scale")
 # the bound allows two steps.
 MM_REL_TOL_BF16 = 2 ** -7
 MM_ROWS = (8, 2048)                 # decode step; 8 slots x 256-token wave
+# weight-only kernel: every route and both of the narrow route's x tiles
+WO_ROWS = (1, 3, 8, 12, 16, 64, 100, 2048)
 # (K, N) of wq/wo, wk/wv, w_gate/w_up, w_down and lm_head of qwen2.5-3b
 MM_SHAPES = ((2048, 2048), (2048, 256), (2048, 11008), (11008, 2048),
              (2048, 152064))
@@ -208,7 +214,15 @@ def card_line() -> str:
 
 
 class Timer:
-    """Per-launch CUDA-event timing with the 50 MB L2 flushed first."""
+    """Per-launch CUDA-event timing with the 50 MB L2 flushed first.
+
+    A spin of ~1 ms on the card follows the flush, so that the host has
+    queued the whole call (the wrapper's checks, allocations and launches)
+    before the card reaches the start event: the window then holds device
+    time only.  Without it a call shorter than the host's enqueue time
+    would read that enqueue time instead."""
+
+    SPIN_CYCLES = 2_000_000
 
     def __init__(self, torch):
         self.torch = torch
@@ -221,6 +235,7 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -241,43 +256,86 @@ def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS):
 # Phase 2: kernels against their plain versions.
 # ---------------------------------------------------------------------------
 
+# the route each kernel record names: the bf16 flash forward and the bf16
+# weight-only matmul run on tensor cores (the route chosen by dtype, and
+# for the matmul by M, before launch; see the .cu heads), everything else
+# on the CUDA cores
+FLASH_DESIGN = {"bf16": "mma.sync m16n8k16 bf16, 2-slot cp.async K/V ring "
+                        "(FA2, 4 warps x 16 query rows)",
+                "f32": "FMA, flash_tile.cuh (f32 route)"}
+WO_DESIGN = {"rows": "mma.sync m16n8k16 bf16, 4-slot cp.async ring, 128x128 "
+                     "tiles of 4 warps (64x64)",
+             "cols": "mma.sync m16n8k16 bf16 on W^T x^T, 4-slot cp.async "
+                     "ring, split-K"}
+PAGED_DESIGN = "FMA (CUDA cores)"
+INT_DESIGN = "__dp4a"
+# bf16 flash edge shapes, at every HEAD_DIMS pair beside the engine's:
+# (B, Sq = Skv, kv_valid or None); the ragged last query tile, one query,
+# kv_valid short of Skv (and of the query rows), one sequence
+FLASH_EDGES = ((8, 1, None), (8, 63, None), (8, 65, None), (8, 188, None),
+               (8, 188, 150), (8, 256, 200), (8, 65, 17), (1, 256, None),
+               (1, 188, 100))
+
+
 def check_flash(torch, timer, dtype, B=8, S=256, H=16, KV=2, dh=128,
-                dv=None):
+                dv=None, kv_valid=None, timed=True):
     """The flash forward at q/k width ``dh`` and v width ``dv`` (default
-    ``dh``; MLA's fresh chunk: 192 and 128)."""
+    ``dh``; MLA's fresh chunk: 192 and 128), Sq = Skv = ``S``."""
     from repro_torch.kernels import flash_attention as fa
     dv = dv or dh
+    kvv = S if kv_valid is None else kv_valid
     g = torch.Generator(device="cuda").manual_seed(1)
     q, k, v = (torch.randn((B, S, n, d), generator=g, device="cuda")
                .to(dtype) for n, d in ((H, dh), (KV, dh), (KV, dv)))
-    got = fa.flash_attention(q, k, v, kv_valid=S)
-    want = fa.flash_attention_plain(q, k, v, S)
+    got = fa.flash_attention(q, k, v, kv_valid=kvv)
+    want = fa.flash_attention_plain(q, k, v, kvv)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    tol = FLASH_TOL_BF16 if dtype == torch.bfloat16 else FLASH_TOL_F32
+    bf16 = dtype == torch.bfloat16
+    tol = FLASH_TOL_BF16 if bf16 else FLASH_TOL_F32
     name = f"flash_attention_fwd[{str(dtype).split('.')[-1]}, dk {dh}, " \
-        f"dv {dv}]"
+        f"dv {dv}, B {B}, Sq {S}, kv_valid {kvv}]"
     if not err <= tol:
         fail(f"{name}: max |kernel - plain| {err} > {tol}")
     rec = {"name": "flash_attention_fwd", "dtype": str(dtype),
+           "design": FLASH_DESIGN["bf16" if bf16 else "f32"],
            "shapes": {"q": [B, S, H, dh], "k": [B, S, KV, dh],
-                      "v": [B, S, KV, dv]},
+                      "v": [B, S, KV, dv], "kv_valid": kvv},
            "max_abs_err": err, "tol": tol}
-    if dtype != torch.bfloat16:
+    if not (bf16 and timed):
         return rec
-    rec["kernel_ms"] = timer.ms(lambda: fa.flash_attention(q, k, v,
-                                                           kv_valid=S))
-    rec["plain_ms"] = timer.ms(lambda: fa.flash_attention_plain(q, k, v, S))
+    run = lambda: fa.flash_attention(q, k, v, kv_valid=kvv)  # noqa: E731
+    rec["kernel_ms"] = timer.ms(run)
+    rec["plain_ms"] = timer.ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                                kvv))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rec["library_ms"] = timer.ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                               enable_gqa=True))
+    rec["library_ratio"] = rec["kernel_ms"] / rec["library_ms"]
     pairs = B * H * S * (S + 1) // 2
     nbytes = (B * S * H * (dh + dv) + B * S * KV * (dh + dv)) * \
         q.element_size()
     rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes,
                                                 2 * (dh + dv) * pairs)
     return rec
+
+
+def flash_checks(torch, timer):
+    """The bf16 flash route at every HEAD_DIMS pair: the engine's chunk
+    (B 8, 256 rows, H 16, KV 2; KV = H = 16 at MLA's 192 / 128), timed,
+    and every FLASH_EDGES shape."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    recs = {}
+    for dk, dv in HEAD_DIMS:
+        kv = 16 if dk != dv else 2
+        recs[f"dk{dk}_dv{dv}"] = check_flash(torch, timer, torch.bfloat16,
+                                             KV=kv, dh=dk, dv=dv)
+        for b, sq, kvv in FLASH_EDGES:
+            recs[f"dk{dk}_dv{dv}_B{b}_Sq{sq}_kv{kvv}"] = check_flash(
+                torch, timer, torch.bfloat16, B=b, S=sq, KV=kv, dh=dk, dv=dv,
+                kv_valid=kvv, timed=False)
+    return recs
 
 
 def paged_case(torch, dtype, B, Sq, H, KV, dh, ps, P, seed, dv=None):
@@ -642,6 +700,13 @@ def mm_cases():
                 ((8, 8), (8, 4))
             cases += [("mpq_matmul", m, k, n, a, w) for a, w in fmts]
             cases += [("wo_matmul", m, k, n, 16, w) for w in (8, 4, 2)]
+    # the weight-only kernel's two bf16 routes at other row counts (one
+    # row, ragged rows below and above the 16-row switch, one and two x
+    # tiles of the narrow route), untimed
+    for m in WO_ROWS:
+        if m not in MM_ROWS:
+            cases += [("wo_matmul", m, k, n, 16, w) for k, n in MM_SHAPES
+                      for w in (8, 4, 2)]
     return cases
 
 
@@ -691,10 +756,15 @@ def check_matmul(torch, timer, kind, M, K, N, a_bits, w_bits, seed):
         if not err <= tol:
             fail(f"wo_matmul {fmt} M={M} K={K} N={N}: max |kernel - plain| "
                  f"{err} > {tol}")
-    rec = {"name": kind, "format": fmt,
+    design = INT_DESIGN if kind == "mpq_matmul" else \
+        WO_DESIGN["cols" if M <= 16 else "rows"]
+    rec = {"name": kind, "format": fmt, "design": design,
            "shapes": {"M": M, "K": K, "N": N}, "max_abs_err": err,
-           "tol": tol, "kernel_ms": timer.ms(run, iters=5, warmup=1),
-           "plain_ms": timer.ms(plain, iters=3, warmup=1)}
+           "tol": tol}
+    if M not in MM_ROWS:
+        return rec
+    rec["kernel_ms"] = timer.ms(run, iters=5, warmup=1)
+    rec["plain_ms"] = timer.ms(plain, iters=3, warmup=1)
     # yardsticks: one PyTorch call each, timed here and used nowhere in
     # the port; neither computes the same function on the same inputs
     if kind == "wo_matmul":
@@ -1497,10 +1567,11 @@ def serve_kv_f32(torch, name, fmt):
              f"forward: {bad}")
 
 
-def kernel_entry(name, source, replaces, launches, rec):
+def kernel_entry(name, source, replaces, launches, rec, design=None):
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + source,
             "replaces": replaces, "launches": launches,
+            "design": design or rec["design"],
             "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
@@ -1508,8 +1579,10 @@ def kernel_entry(name, source, replaces, launches, rec):
 
 def kernel_checks(torch, timer):
     """Phases 2 and 2b: the attention kernels against their plain
-    versions.  Returns (qwen2.5-3b records, MLA path records)."""
-    recs = [check_flash(torch, timer, torch.bfloat16),
+    versions.  Returns (qwen2.5-3b records, MLA path records, bf16 flash
+    records at every head pair)."""
+    flash = flash_checks(torch, timer)
+    recs = [flash["dk128_dv128"],
             check_flash(torch, timer, torch.float32),
             check_paged(torch, timer, torch.bfloat16, Sq=1),
             check_paged(torch, timer, torch.bfloat16, Sq=256),
@@ -1518,8 +1591,7 @@ def kernel_checks(torch, timer):
     # deepseek-v2-lite's MLA path: the fresh chunk's naive form (dk 192,
     # dv 128, KV = H = 16), the resumed chunk's expanded window viewed as
     # a pool of B * P pages, and the compressed-space decode partials
-    mla = {"flash": check_flash(torch, timer, torch.bfloat16, KV=16, dh=192,
-                                dv=128),
+    mla = {"flash": flash["dk192_dv128"],
            "paged": check_paged(torch, timer, torch.bfloat16, Sq=256, KV=16,
                                 dh=192, dv=128),
            "flash_f32": check_flash(torch, timer, torch.float32, KV=16,
@@ -1537,9 +1609,11 @@ def kernel_checks(torch, timer):
         for tag, dt in (("", torch.bfloat16), ("_f32", torch.float32)):
             mla[f"mla_P128_ps{ps}_c{c}{tag}"] = check_mla(
                 torch, timer, dt, 128, ps=ps, c=c)
-    for rec in recs + list(mla.values()):
+    more = [r for k, r in flash.items()
+            if k not in ("dk128_dv128", "dk192_dv128")]
+    for rec in recs + list(mla.values()) + more:
         print(json.dumps(dict(phase="kernel", **rec)), flush=True)
-    return recs, mla
+    return recs, mla, flash
 
 
 def main() -> None:
@@ -1563,7 +1637,7 @@ def main() -> None:
                       "ptxas": ptxas}), flush=True)
 
     timer = Timer(torch)
-    recs, mla_recs = kernel_checks(torch, timer)
+    recs, mla_recs, flash_recs = kernel_checks(torch, timer)
     q_recs = quant_kernel_checks(torch, timer)
     t0 = time.perf_counter()
     mm_recs = [check_matmul(torch, timer, *case, seed=i)
@@ -1667,37 +1741,58 @@ def main() -> None:
     rep = {r["name"]: r for r in mm_recs
            if r["shapes"] == {"M": 8, "K": 11008, "N": 2048}
            and r["format"] in ("w4a16", "w8a8")}
+    # ... with the prefill-time w_up case (M 2048) beside it
+    pre = {r["name"]: r for r in mm_recs
+           if r["shapes"] == {"M": 2048, "K": 2048, "N": 11008}
+           and r["format"] in ("w4a16", "w8a8")}
+
+    def prefill(rec):
+        return {k: rec.get(k) for k in (
+            "design", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "shapes")}
+
+    def pair(rec):
+        return {k: rec[k] for k in (
+            "max_abs_err", "kernel_ms", "plain_ms", "library_ms",
+            "library_ratio", "bound_ms", "bound_by", "shapes")}
     # flash and paged: the qwen2.5-3b path's numbers, with the MLA path's
     # (dk 192, dv 128) beside them
     line = {"kernels": [
         dict(kernel_entry("flash_attention_fwd", "flash_attention.cu",
                           "src/repro/kernels/flash_attention.py:36",
                           launches["flash_attention_fwd"], recs[0]),
-             mla_path=mla_path("flash_attention_fwd", mla_recs["flash"])),
+             library_ratio=recs[0]["library_ratio"],
+             mla_path=dict(mla_path("flash_attention_fwd", mla_recs["flash"]),
+                           library_ratio=mla_recs["flash"]["library_ratio"]),
+             dk32=pair(flash_recs["dk32_dv32"]),
+             dk64=pair(flash_recs["dk64_dv64"])),
         dict(kernel_entry("paged_flash_decode_partials",
                           "paged_flash_decode.cu",
                           "src/repro/kernels/paged_flash_decode.py:129",
-                          launches["paged_flash_decode_partials"], recs[2]),
+                          launches["paged_flash_decode_partials"], recs[2],
+                          PAGED_DESIGN),
              mla_path=mla_path("paged_flash_decode_partials",
                                mla_recs["paged"])),
         kernel_entry("mla_paged_decode_partials", "mla_paged_decode.cu",
                      "src/repro/kernels/paged_flash_decode.py:299",
                      mla_launches["mla_paged_decode_partials"],
-                     mla_recs["mla_P128"]),
-        kernel_entry("wo_matmul", "mpq_matmul.cu",
-                     "src/repro/kernels/mpq_matmul.py:56",
-                     launches["wo_matmul"], dict(rep["wo_matmul"],
-                                                 library_ms=None)),
-        kernel_entry("mpq_matmul", "mpq_matmul.cu",
-                     "src/repro/kernels/mpq_matmul.py:32",
-                     launches["mpq_matmul"], rep["mpq_matmul"]),
+                     mla_recs["mla_P128"], PAGED_DESIGN),
+        dict(kernel_entry("wo_matmul", "mpq_matmul.cu",
+                          "src/repro/kernels/mpq_matmul.py:56",
+                          launches["wo_matmul"], dict(rep["wo_matmul"],
+                                                      library_ms=None)),
+             prefill=prefill(pre["wo_matmul"])),
+        dict(kernel_entry("mpq_matmul", "mpq_matmul.cu",
+                          "src/repro/kernels/mpq_matmul.py:32",
+                          launches["mpq_matmul"], rep["mpq_matmul"]),
+             prefill=prefill(pre["mpq_matmul"])),
         # the quantized kernels: int8 at decode, with int4 and the
         # resumed 256-row chunk (GQA) beside it
         dict(kernel_entry("paged_flash_decode_partials_quant",
                           "paged_flash_decode.cu",
                           "src/repro/kernels/paged_flash_decode.py:168",
                           kv_launches["paged_flash_decode_partials_quant"],
-                          q_recs["gqa_int8_sq1_ceng_bf16"]),
+                          q_recs["gqa_int8_sq1_ceng_bf16"], PAGED_DESIGN),
              int4=quant_path(q_recs["gqa_int4_sq1_ceng_bf16"]),
              resumed_int8=quant_path(q_recs["gqa_int8_sq256_ceng_bf16"]),
              resumed_int4=quant_path(q_recs["gqa_int4_sq256_ceng_bf16"])),
@@ -1705,7 +1800,7 @@ def main() -> None:
                           "mla_paged_decode.cu",
                           "src/repro/kernels/paged_flash_decode.py:337",
                           kv_launches["mla_paged_decode_partials_quant"],
-                          q_recs["mla_int8_ps16_ceng_bf16"]),
+                          q_recs["mla_int8_ps16_ceng_bf16"], PAGED_DESIGN),
              int4=quant_path(q_recs["mla_int4_ps16_ceng_bf16"])),
     ]}
     print(card, flush=True)

@@ -8,8 +8,12 @@ apply_attention`) and MLA's naive form (:func:`repro_torch.models.mla.
 apply_mla`), whose keys are wider than its values (dk 192, dv 128).
 
 :func:`flash_attention` takes the plain PyTorch version only for tensors
-on the CPU; for CUDA tensors it launches the kernel or raises.  Each
-launch adds one to the module's ``launches`` count.
+on the CPU; for CUDA tensors it launches the kernel or raises.  The
+kernel's route follows the dtype: bf16 (the serving path) runs on the
+tensor cores (``mma.sync`` with a ``cp.async`` K/V ring), float32 on the
+CUDA cores, since float32 on tensor cores would be TF32 (the ``.cu``
+head says how each works).  Each launch adds one to the module's
+``launches`` count.
 """
 from __future__ import annotations
 

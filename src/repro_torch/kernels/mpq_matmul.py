@@ -16,8 +16,12 @@ are the kernels' own business, so there are no tile arguments.
 
 :func:`mpq_matmul` and :func:`wo_matmul` take the plain PyTorch version
 only for tensors on the CPU; for CUDA tensors they launch the kernel or
-raise.  Each call on the card launches its kernel once and adds one to
-the module's ``launches`` count.  A call whose K is split over extra
+raise.  A bf16 x runs the weight-only kernel on the tensor cores (one
+route for M <= 16 rows, one above, chosen in the library; it needs
+K % 64 == 0 and N % 16 == 0, which ``ops.prepare_weight``'s padding
+gives, and raises otherwise), a float32 x on the CUDA cores.  Each call
+on the card launches its kernel once and adds one to the module's
+``launches`` count.  A call whose K is split over extra
 blocks (few rows, see the ``.cu`` head) launches a second, small kernel
 that adds the partials and applies the scales; it adds one to
 ``reduce_launches`` instead.
@@ -153,7 +157,7 @@ def wo_matmul(x: torch.Tensor, w_packed: torch.Tensor, w_scale: torch.Tensor,
     if m == 0 or n == 0:
         return out
     lib = _lib()
-    splits = lib.wo_matmul_splits(m, n, k, w_bits)
+    splits = lib.wo_matmul_splits(m, n, k, w_bits, DTYPES[x.dtype])
     part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     with torch.cuda.device(x.device):
@@ -172,7 +176,7 @@ def _lib():
     lib = _build.load("mpq_matmul")
     if lib.mpq_matmul.argtypes is None:
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.wo_matmul_splits.argtypes = [i] * 4
+        lib.wo_matmul_splits.argtypes = [i] * 5
         lib.wo_matmul_splits.restype = i
         lib.mpq_matmul_splits.argtypes = [i] * 5
         lib.mpq_matmul_splits.restype = i

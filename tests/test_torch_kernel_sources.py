@@ -1,0 +1,164 @@
+"""Source rules of the port's CUDA kernels, checked on the CPU.
+
+The card is needed to run a kernel, not to read one: these tests follow
+the calls from each kernel entry through the sources and their headers,
+so that the bf16 routes provably reach a tensor-core instruction and an
+asynchronous copy, the float32 routes stay on the CUDA cores, and no port
+file reaches a library kernel."""
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mpq_matmul as mm
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+CSRC = _build.CSRC
+
+MMA_BF16 = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
+CALL = re.compile(r"\b(\w+)\s*(?:<[^<>;(){}]*>)?\s*(?:<<<[^>]*>>>)?\s*\(")
+INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
+
+
+def _includes(name):
+    """Every local header a source reaches, transitively."""
+    seen, todo = set(), [name]
+    while todo:
+        for inc in INCLUDE.findall((CSRC / todo.pop()).read_text()):
+            if inc not in seen:
+                seen.add(inc)
+                todo.append(inc)
+    return seen
+
+
+def _text(source):
+    """A source with every local header it reaches."""
+    return "\n".join((CSRC / f).read_text()
+                     for f in [source, *sorted(_includes(source))])
+
+
+def _match(text, i, open_, close):
+    depth = 0
+    for j in range(i, len(text)):
+        depth += {open_: 1, close: -1}.get(text[j], 0)
+        if depth == 0:
+            return j
+    raise ValueError("unbalanced")
+
+
+def _body(text, name):
+    """The body of the function ``name`` is defined with, or None."""
+    for m in re.finditer(rf"\b{name}\s*\(", text):
+        end = _match(text, m.end() - 1, "(", ")")
+        rest = text[end + 1:]
+        stripped = rest.lstrip()
+        if stripped.startswith("{"):
+            start = end + 1 + len(rest) - len(stripped)
+            return text[start:_match(text, start, "{", "}") + 1]
+    return None
+
+
+def _reach(text, name):
+    """Functions defined in ``text`` that ``name`` calls, transitively
+    (kernel launches included), and ``name`` itself."""
+    seen, todo = {name}, [name]
+    while todo:
+        body = _body(text, todo.pop()) or ""
+        for callee in CALL.findall(body):
+            if callee not in seen and _body(text, callee) is not None:
+                seen.add(callee)
+                todo.append(callee)
+    return seen
+
+
+@pytest.mark.parametrize("source,entry,kernel", [
+    ("flash_attention.cu", "launch_mma", "flash_fwd_mma"),
+    ("mpq_matmul.cu", "launch_wo_mma", "wo_mma_rows"),
+    ("mpq_matmul.cu", "launch_wo_mma", "wo_mma_cols"),
+])
+def test_bf16_routes_reach_tensor_cores_and_async_copies(source, entry,
+                                                         kernel):
+    text = _text(source)
+    assert kernel in _reach(text, entry)
+    reached = _reach(text, kernel)
+    assert {"mma_bf16", "cp_async16", "cp_async_wait"} <= reached, reached
+    assert MMA_BF16 in _body(text, "mma_bf16")
+    assert "cp.async.cg.shared.global" in _body(text, "cp_async16")
+    assert "ldmatrix.sync.aligned" in _body(text, "ldsm_x4")
+
+
+@pytest.mark.parametrize("source,entry,kernel", [
+    ("flash_attention.cu", "launch_fma", "flash_fwd_fma"),
+    ("mpq_matmul.cu", "launch_wo_fma", "wo_kernel"),
+])
+def test_float32_routes_stay_on_the_cuda_cores(source, entry, kernel):
+    """float32 on tensor cores would be TF32, another function."""
+    text = _text(source)
+    assert kernel in _reach(text, entry)
+    assert not {"mma_bf16", "ldsm_x4", "ldsm_x4_t"} & _reach(text, kernel)
+
+
+@pytest.mark.parametrize("source,entry,routes", [
+    ("flash_attention.cu", "flash_attention_fwd",
+     {"launch_mma", "launch_fma"}),
+    ("mpq_matmul.cu", "wo_matmul", {"launch_wo_mma", "launch_wo_fma"}),
+])
+def test_the_dtype_chooses_the_route_before_launch(source, entry, routes):
+    text = _text(source)
+    assert routes <= _reach(text, entry)
+    body = _body(text, entry)
+    assert "dtype" in body and not re.search(r"\btry\b", body)
+
+
+def test_paged_kernels_still_include_flash_tile():
+    """The redesign leaves the four paged kernels' shared tile alone."""
+    for src in ("paged_flash_decode.cu", "mla_paged_decode.cu"):
+        assert "flash_tile.cuh" in _includes(src), src
+        assert "mma_bf16.cuh" not in _includes(src), src
+    for src in ("flash_attention.cu", "mpq_matmul.cu"):
+        assert "mma_bf16.cuh" in _includes(src), src
+
+
+def test_an_edited_header_rebuilds_every_library(tmp_path, monkeypatch):
+    """``_build._lib_path`` hashes every ``*.cuh``: editing the new
+    tensor-core header gives each source a new library name, so a stale
+    build is never loaded."""
+    for f in CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build._lib_path(n) for n in _build.SOURCES}
+    head = tmp_path / "mma_bf16.cuh"
+    head.write_text(head.read_text() + "\n// edited\n")
+    after = {n: _build._lib_path(n) for n in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
+    assert all(p.name.startswith(f"lib{n}.") for n, p in after.items())
+
+
+def test_no_port_file_names_a_library_kernel():
+    """No cuBLAS, cuDNN or fused attention call anywhere in the port:
+    every kernel it launches is its own."""
+    pat = re.compile(r"cublas|cudnn|scaled_dot_product_attention", re.I)
+    files = [p for ext in ("*.py", "*.cu", "*.cuh") for p in PKG.rglob(ext)]
+    assert len(files) > 20
+    hits = [str(f) for f in files if pat.search(f.read_text())]
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("call", ["flash", "wo_matmul"])
+def test_bf16_wrappers_have_no_fallback_off_the_cpu(call):
+    """A bf16 tensor off the CPU reaches the kernel or raises."""
+    if call == "flash":
+        q = torch.empty(1, 4, 2, 32, dtype=torch.bfloat16, device="meta")
+        with pytest.raises(ValueError, match="no kernel"):
+            fa.flash_attention(q, q, q)
+    else:
+        wp = torch.zeros(32, 16, dtype=torch.int8, device="meta")
+        ws = torch.ones(1, 16, device="meta")
+        x = torch.empty(3, 64, dtype=torch.bfloat16, device="meta")
+        with pytest.raises(ValueError, match="no kernel"):
+            mm.wo_matmul(x, wp, ws, w_bits=4)
