@@ -54,7 +54,7 @@
 //   FMA design of `flash_tile.cuh`: four threads a query row, 32-key
 //   tiles widened to float in shared memory (99 KB at dk 192).
 #include "flash_tile.cuh"
-#include "mma_bf16.cuh"
+#include "mma.cuh"
 
 namespace {
 

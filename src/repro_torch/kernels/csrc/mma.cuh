@@ -1,8 +1,9 @@
 // Tensor-core building blocks shared by the bf16 routes of the flash
-// forward (`flash_attention.cu`) and the weight-only packed matmul
-// (`mpq_matmul.cu`): 16-byte asynchronous copies into shared memory,
-// `ldmatrix` fragment loads and the warp-level
-// `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` product.
+// forward (`flash_attention.cu`) and the weight-only packed matmul, and
+// by the integer packed matmul (both `mpq_matmul.cu`): 16-byte
+// asynchronous copies into shared memory, `ldmatrix` fragment loads and
+// the warp-level products `mma.sync.aligned.m16n8k16.row.col.f32.bf16
+// .bf16.f32` and (`mma_s8`, below) `m16n8k32.row.col.s32.s8.s8.s32`.
 //
 // Fragment layouts of m16n8k16 (lane t of a warp, g = t / 4, c = t % 4):
 //   A (16 x 16, row-major):  a0 = A[g][2c..2c+1],   a1 = A[g+8][2c..2c+1],
@@ -72,6 +73,24 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A * B on the tensor cores: s8 products, exact int32 sums (the
+// integer packed matmul).  Fragment layouts of m16n8k32, four s8 a
+// register with the lowest k in the low byte:
+//   A (16 x 32, row-major):  a0 = A[g][4c..4c+3],    a1 = A[g+8][4c..4c+3],
+//                            a2 = A[g][16+4c..+19],  a3 = A[g+8][16+4c..+19]
+//   B (32 x 8, "col"):       b0 = B[4c..4c+3][g],    b1 = B[16+4c..+19][g]
+//   C/D (16 x 8, int32):     as m16n8k16's float32 C/D.
+// A sum of exact products is exact in any order, so any assignment of k
+// to fragment slots gives the same result, as long as A and B share it.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

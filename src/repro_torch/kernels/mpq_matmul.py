@@ -16,10 +16,11 @@ are the kernels' own business, so there are no tile arguments.
 
 :func:`mpq_matmul` and :func:`wo_matmul` take the plain PyTorch version
 only for tensors on the CPU; for CUDA tensors they launch the kernel or
-raise.  A bf16 x runs the weight-only kernel on the tensor cores (one
-route for M <= 16 rows, one above, chosen in the library; it needs
-K % 64 == 0 and N % 16 == 0, which ``ops.prepare_weight``'s padding
-gives, and raises otherwise), a float32 x on the CUDA cores.  Each call
+raise.  The integer kernel and a bf16 x's weight-only kernel run on the
+tensor cores (one route for M <= 16 rows, one above, chosen in the
+library; they need K % 128 == 0 (64 at a8w8 and for the weight-only
+kernel) and N % 16 == 0, which ``ops.prepare_weight``'s padding gives,
+and raise otherwise), a float32 x's on the CUDA cores.  Each call
 on the card launches its kernel once and adds one to the module's
 ``launches`` count.  A call whose K is split over extra
 blocks (few rows, see the ``.cu`` head) launches a second, small kernel

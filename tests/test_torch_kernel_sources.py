@@ -4,7 +4,8 @@ The card is needed to run a kernel, not to read one: these tests follow
 the calls from each kernel entry through the sources and their headers,
 so that the bf16 routes provably reach a tensor-core instruction and an
 asynchronous copy, the float32 routes stay on the CUDA cores, and no port
-file reaches a library kernel."""
+file reaches a library kernel.  The integer matmul, whose int32 sums are
+exact in any order, runs on the s8 tensor-core product."""
 import re
 from pathlib import Path
 
@@ -20,6 +21,7 @@ PKG = ROOT / "src" / "repro_torch"
 CSRC = _build.CSRC
 
 MMA_BF16 = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
+MMA_S8 = "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"
 CALL = re.compile(r"\b(\w+)\s*(?:<[^<>;(){}]*>)?\s*(?:<<<[^>]*>>>)?\s*\(")
 INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
 
@@ -91,6 +93,35 @@ def test_bf16_routes_reach_tensor_cores_and_async_copies(source, entry,
     assert "ldmatrix.sync.aligned" in _body(text, "ldsm_x4")
 
 
+@pytest.mark.parametrize("kernel", ["int_mma_rows", "int_mma_cols"])
+def test_the_integer_routes_reach_s8_tensor_cores_and_async_copies(kernel):
+    text = _text("mpq_matmul.cu")
+    assert kernel in _reach(text, "launch_int")
+    reached = _reach(text, kernel)
+    assert {"mma_s8", "cp_async16", "cp_async_wait", "ldsm_x4",
+            "ldsm_x4_t"} <= reached, reached
+    assert MMA_S8 in _body(text, "mma_s8")
+    assert "mma_bf16" not in reached
+
+
+def test_the_integer_matmul_reaches_no_dp4a():
+    """The CUDA-core design is gone: no ``__dp4a`` anywhere the C entry
+    reaches, nor in the source."""
+    text = _text("mpq_matmul.cu")
+    reached = _reach(text, "mpq_matmul")
+    assert {"launch_int", "int_mma_rows", "int_mma_cols"} <= reached
+    assert not any("__dp4a" in (_body(text, f) or "") for f in reached)
+    assert "__dp4a" not in (CSRC / "mpq_matmul.cu").read_text()
+    assert _body(text, "int_kernel") is None
+
+
+def test_the_rows_choose_the_integer_route_before_launch():
+    body = _body(_text("mpq_matmul.cu"), "launch_int")
+    assert re.search(r"if \(small_m\(M\)\)", body)
+    assert body.index("int_mma_cols") < body.index("int_mma_rows")
+    assert not re.search(r"\btry\b", body)
+
+
 @pytest.mark.parametrize("source,entry,kernel", [
     ("flash_attention.cu", "launch_fma", "flash_fwd_fma"),
     ("mpq_matmul.cu", "launch_wo_fma", "wo_kernel"),
@@ -118,9 +149,9 @@ def test_paged_kernels_still_include_flash_tile():
     """The redesign leaves the four paged kernels' shared tile alone."""
     for src in ("paged_flash_decode.cu", "mla_paged_decode.cu"):
         assert "flash_tile.cuh" in _includes(src), src
-        assert "mma_bf16.cuh" not in _includes(src), src
+        assert "mma.cuh" not in _includes(src), src
     for src in ("flash_attention.cu", "mpq_matmul.cu"):
-        assert "mma_bf16.cuh" in _includes(src), src
+        assert "mma.cuh" in _includes(src), src
 
 
 def test_an_edited_header_rebuilds_every_library(tmp_path, monkeypatch):
@@ -132,7 +163,7 @@ def test_an_edited_header_rebuilds_every_library(tmp_path, monkeypatch):
             (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = {n: _build._lib_path(n) for n in _build.SOURCES}
-    head = tmp_path / "mma_bf16.cuh"
+    head = tmp_path / "mma.cuh"
     head.write_text(head.read_text() + "\n// edited\n")
     after = {n: _build._lib_path(n) for n in _build.SOURCES}
     assert all(before[n] != after[n] for n in _build.SOURCES)
@@ -140,9 +171,10 @@ def test_an_edited_header_rebuilds_every_library(tmp_path, monkeypatch):
 
 
 def test_no_port_file_names_a_library_kernel():
-    """No cuBLAS, cuDNN or fused attention call anywhere in the port:
-    every kernel it launches is its own."""
-    pat = re.compile(r"cublas|cudnn|scaled_dot_product_attention", re.I)
+    """No cuBLAS, cuDNN, CUTLASS, fused attention or integer GEMM call
+    anywhere in the port: every kernel it launches is its own."""
+    pat = re.compile(r"cublas|cudnn|cutlass|scaled_dot_product_attention"
+                     r"|_int_mm|_scaled_mm", re.I)
     files = [p for ext in ("*.py", "*.cu", "*.cuh") for p in PKG.rglob(ext)]
     assert len(files) > 20
     hits = [str(f) for f in files if pat.search(f.read_text())]
@@ -162,3 +194,13 @@ def test_bf16_wrappers_have_no_fallback_off_the_cpu(call):
         x = torch.empty(3, 64, dtype=torch.bfloat16, device="meta")
         with pytest.raises(ValueError, match="no kernel"):
             mm.wo_matmul(x, wp, ws, w_bits=4)
+
+
+def test_the_integer_wrapper_has_no_fallback_off_the_cpu():
+    """Integer operands off the CPU reach the kernel or raise."""
+    xq = torch.zeros(3, 128, dtype=torch.int8, device="meta")
+    xs = torch.ones(3, 1, device="meta")
+    wp = torch.zeros(128, 16, dtype=torch.int8, device="meta")
+    ws = torch.ones(1, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        mm.mpq_matmul(xq, xs, wp, ws, a_bits=8, w_bits=8)

@@ -53,7 +53,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
 def test_no_source_file_imports_jax_or_repro():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                       ROOT / "int_row_errors.py"]
     assert len(files) > 15
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert not hits, hits
@@ -97,7 +98,8 @@ def test_no_port_file_mentions_the_kernel_switch():
     counterpart: the wrappers choose by device, so no field can lead a
     CUDA tensor to a plain version."""
     files = list(PKG.rglob("*.py")) + list(PKG.rglob("*.cu")) + \
-        list(PKG.rglob("*.cuh")) + [ROOT / "chip_smoke.py"]
+        list(PKG.rglob("*.cuh")) + [ROOT / "chip_smoke.py",
+                                    ROOT / "int_row_errors.py"]
     hits = [str(f) for f in files if "use_kernel" in f.read_text()]
     assert not hits, hits
 
