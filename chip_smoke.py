@@ -14,8 +14,16 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      prefill chunk, the paged partials at decode (Sq=1) and at a resumed
      256-token chunk; the bf16 flash forward (the tensor-core route) also
      at every HEAD_DIMS pair, at that chunk and at FLASH_EDGES (1, 63, 65
-     and 188 rows, kv_valid short of the chunk, one sequence); time
-     kernel, plain version and (flash only) the library's
+     and 188 rows, kv_valid short of the chunk, one sequence); the bf16
+     paged partials (decode rows on the CUDA cores, chunks of more than
+     16 Sq x G rows on the tensor cores) also at every HEAD_DIMS pair and
+     PAGED_EDGES case (3, 17, 65, 188 and 256 query positions, 1-3 pages
+     a split and the engine's, page 16 and 32) on a pool with a hole, a
+     mapped page past a slot's position and an inactive slot, every
+     skipped split and every row that sees no key exactly (-1e30, 0, 0),
+     each case within PAGED_EDGE_TOL_BF16, which a causal mask one key
+     off, planted in the plain version, must break;
+     time kernel, plain version and (flash only) the library's
      ``scaled_dot_product_attention`` with a cold L2 (see ``Timer``),
      beside the least time the card could take;
   3. serve full-width, full-depth qwen2.5-3b in bf16 (random weights from
@@ -23,8 +31,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      of 32-1024 prompt tokens (several span multiple chunks, two share a
      page-aligned prefix), 32 new tokens each.  Every kernel's launch
      count is set to 0 just before and read just after; each must be > 0.
-     Two finished requests' logits are held against a plain contiguous
-     forward of the same token sequence (teacher forcing);
+     Every dispatch is logged with the launches it made: a fresh wave
+     launches the flash kernel 36 times, a resumed wave (the paged
+     kernel's chunk route) and a decode step (its decode route) the
+     paged kernel 36 times, neither launching the other.  Two finished
+     requests' logits are held against a plain contiguous forward of the
+     same token sequence (teacher forcing);
   4. run a 2-layer float32 version of the same arch through the engine
      and the plain forward: the greedy tokens must be equal;
   5. hold the packed matmul kernels against their plain versions at the
@@ -39,7 +51,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   6. serve the same full-depth model packed by ``quantize_for_serving``
      at w4a16 and then at w8a8 with the phase-3 traffic: every request
      completes, the matmul kernels launch 7 x 36 + 1 = 253 times per
-     decode dispatch, and two requests' teacher-forced logits match a
+     decode dispatch, the attention kernels per dispatch as in phase 3,
+     and two requests' teacher-forced logits match a
      plain contiguous forward over the SAME packed weights through the
      plain versions (at w8a8 by two statistics of the rows' errors, the
      largest and the mean square over positions, each within a multiple
@@ -127,6 +140,12 @@ FLASH_TOL_BF16 = 2e-2               # bf16 output ulp + bf16 weights per tile
 FLASH_TOL_F32 = 1e-4                # summation order only
 PAGED_TOL_BF16 = 2e-2
 PAGED_TOL_F32 = 1e-4
+# the PAGED_EDGES cases (bf16) are held to this as well: 3x the largest
+# error the CUDA-core route read on them before the tensor-core chunk
+# route existed (2.66e-3 on an H100), so that a causal mask one key off
+# breaks it; each case plants that fault in the plain version and fails
+# unless the fault lands outside (PERF.md §6, PR 22)
+PAGED_EDGE_TOL_BF16 = 8e-3
 # MLA partials, combined: the kernel rounds its weights to bf16 as the
 # plain version does, but from float32 exponents computed in another
 # order, so a weight may land one bf16 step away; outputs are weighted
@@ -286,7 +305,15 @@ WO_DESIGN = {"rows": "mma.sync m16n8k16 bf16, 4-slot cp.async ring, 128x128 "
                      "tiles of 4 warps (64x64)",
              "cols": "mma.sync m16n8k16 bf16 on W^T x^T, 4-slot cp.async "
                      "ring, split-K"}
-PAGED_DESIGN = "FMA (CUDA cores)"
+# the paged GQA kernel's routes (`pick_route` in its .cu, chosen before
+# launch by dtype, bits and Sq * G rows): a bf16 chunk on an fp pool runs
+# on tensor cores, decode rows and float32 on the CUDA cores
+PAGED_DESIGN = {"chunk": "mma.sync m16n8k16 bf16, 2-slot cp.async K/V ring "
+                         "through the page table (FA2, 4 warps x 16 query "
+                         "rows)",
+                "decode": "FMA (CUDA cores), flash_tile.cuh, 16-row blocks",
+                "f32": "FMA (CUDA cores), flash_tile.cuh (f32 route)"}
+FMA_DESIGN = "FMA (CUDA cores)"     # the MLA and quantized paged kernels
 INT_DESIGN = {"rows": "mma.sync m16n8k32 s8, 4-slot cp.async ring, 128x128 "
                       "tiles of 4 warps (64x64)",
               "cols": "mma.sync m16n8k32 s8 on W^T x^T, 4-slot cp.async "
@@ -297,6 +324,16 @@ INT_DESIGN = {"rows": "mma.sync m16n8k32 s8, 4-slot cp.async ring, 128x128 "
 FLASH_EDGES = ((8, 1, None), (8, 63, None), (8, 65, None), (8, 188, None),
                (8, 188, 150), (8, 256, 200), (8, 65, 17), (1, 256, None),
                (1, 188, 100))
+# paged edge cases, untimed, at every HEAD_DIMS pair (KV 2; KV = H = 16
+# at 192 / 128), on a pool with a hole mid-table, a mapped page past a
+# slot's position and an inactive slot: query rows (3 and 17 rows
+# straddle the 16-row switch between the routes at G 8 and G 1, 65 and
+# 188 leave a ragged last tile), pages a split (1-3 leave splits shorter
+# than a 64-key tile; None: the engine's choice) and page sizes, with P
+# pages of 2048 / ps rows a slot
+PAGED_EDGES_SQ = (3, 17, 65, 188, 256)
+PAGED_EDGES_C = (1, 2, 3, None)
+PAGED_EDGES_PS = (16, 32)
 
 
 def check_flash(torch, timer, dtype, B=8, S=256, H=16, KV=2, dh=128,
@@ -360,9 +397,21 @@ def flash_checks(torch, timer):
     return recs
 
 
-def paged_case(torch, dtype, B, Sq, H, KV, dh, ps, P, seed, dv=None):
+def paged_route(torch, dtype, Sq, H, KV):
+    """The paged GQA kernel's route for a call on an fp pool (the .cu's
+    `pick_route`): a key of PAGED_DESIGN."""
+    if dtype == torch.float32:
+        return "f32"
+    return "chunk" if Sq * (H // KV) > 16 else "decode"
+
+
+def paged_case(torch, dtype, B, Sq, H, KV, dh, ps, P, seed, dv=None,
+               odd=False):
     """A pool as the serving engine leaves it: each slot maps distinct
-    pages for its filled rows (no holes), the last query at qpos."""
+    pages for its filled rows, the last query at qpos.  With ``odd``:
+    slot 0 has a hole mid-table, slot 1 maps one page past its filled
+    rows, the last slot is inactive (position -1, nothing filled, its
+    pages still mapped); the others' fills spread over the table."""
     import numpy as np
     rng = np.random.RandomState(seed)
     n = B * P
@@ -375,49 +424,77 @@ def paged_case(torch, dtype, B, Sq, H, KV, dh, ps, P, seed, dv=None):
     perm = rng.permutation(n)
     k = 0
     for b in range(B):
-        m = -(-int(fill[b]) // ps)
+        m = min(-(-int(fill[b]) // ps) + (odd and b == 1), P)
         tbl[b, :m] = perm[k:k + m]
         k += m
     qpos = (fill[:, None] - Sq + np.arange(Sq)[None, :]).astype(np.int32)
+    if odd:
+        tbl[0, 1] = -1                               # a hole
+        qpos[-1] = -1                                # the inactive slot
+        fill[-1] = 0
     kvv = fill.astype(np.int32)
     as_t = lambda a: torch.from_numpy(a).to("cuda")  # noqa: E731
     return kp, vp, q, as_t(tbl), as_t(qpos), as_t(kvv), fill
 
 
 def check_paged(torch, timer, dtype, Sq, B=8, H=16, KV=2, dh=128, ps=16,
-                P=128, dv=None):
+                P=128, dv=None, c=None, odd=False, edge=False, timed=True):
     """The paged partials at q/k width ``dh`` and v width ``dv`` (default
-    ``dh``; MLA's resumed chunk: 192 and 128 with KV = H)."""
+    ``dh``; MLA's resumed chunk: 192 and 128 with KV = H); ``c`` pages a
+    split (default: the engine's choice); ``odd``: paged_case's hole,
+    page past a position and inactive slot; ``edge``: a PAGED_EDGES case,
+    held to PAGED_EDGE_TOL_BF16, which the plain version with every active
+    row seeing one key more must break.  Timed in bf16 only."""
     from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.models.attention import (_combine_page_partials,
                                               _pages_per_split)
     dv = dv or dh
     kp, vp, q, tbl, qpos, kvv, fill = paged_case(torch, dtype, B, Sq, H, KV,
                                                  dh, ps, P, seed=2 + Sq,
-                                                 dv=dv)
-    c = _pages_per_split(B, Sq, H, P, dv)
+                                                 dv=dv, odd=odd)
+    c = c or _pages_per_split(B, Sq, H, P, dv)
     got = pfd.paged_flash_decode_partials(kp, vp, q, tbl, qpos, kvv,
                                           pages_per_split=c)
     want = pfd.paged_flash_decode_partials_plain(kp, vp, q, tbl, qpos, kvv, c)
     torch.cuda.synchronize()
+    name = f"paged partials Sq={Sq} dk {dh} dv {dv} ps {ps} c {c} " \
+        f"odd {odd} {dtype}"
+    # skipped splits, and query rows that see no key in their split
     skipped = want[0] <= -1e30
+    if odd and not bool(skipped[-1].all()):
+        fail(f"{name}: the inactive slot's plain partials are not skipped")
     if not (bool((got[0][skipped] == -1e30).all())
             and bool((got[1][skipped] == 0).all())
             and bool((got[2][skipped] == 0).all())):
-        fail(f"paged partials Sq={Sq}: skipped splits are not the exact "
-             "identities (-1e30, 0, 0)")
-    err = (_combine_page_partials(*got) - _combine_page_partials(*want)) \
-        .abs().max().item()
+        fail(f"{name}: skipped splits are not the exact identities "
+             "(-1e30, 0, 0)")
+    out = _combine_page_partials(*want)
+    err = (_combine_page_partials(*got) - out).abs().max().item()
     tol = PAGED_TOL_BF16 if dtype == torch.bfloat16 else PAGED_TOL_F32
+    if edge:
+        tol = PAGED_EDGE_TOL_BF16
     if not err <= tol:
-        fail(f"paged partials Sq={Sq} dk {dh} dv {dv} {dtype}: max |kernel "
-             f"- plain| {err} > {tol}")
+        fail(f"{name}: max |kernel - plain| {err} > {tol}")
+    planted = None
+    if edge:
+        shifted = torch.where(qpos >= 0, qpos + 1, qpos)
+        planted = (_combine_page_partials(*pfd.paged_flash_decode_partials_plain(
+            kp, vp, q, tbl, shifted, kvv, c)) - out).abs().max().item()
+        if not planted > tol:
+            fail(f"{name}: a causal mask one key off reads {planted}, "
+                 f"inside the edge bound {tol}")
+    route = paged_route(torch, dtype, Sq, H, KV)
     rec = {"name": "paged_flash_decode_partials", "dtype": str(dtype),
+           "route": route, "design": PAGED_DESIGN[route],
            "shapes": {"q": [B, Sq, H, dh], "pool": list(kp.shape),
                       "v_pool": list(vp.shape), "tbl": [B, P],
-                      "pages_per_split": c},
-           "max_abs_err": err, "tol": tol}
-    if dtype != torch.bfloat16:
+                      "pages_per_split": c, "odd": odd},
+           "max_abs_err": err, "tol": tol,
+           "skipped": int(skipped.sum().item())}
+    if edge:
+        rec["planted_shift_err"] = planted
+    del got, want, out
+    if dtype != torch.bfloat16 or not timed:
         return rec
     rec["kernel_ms"] = timer.ms(lambda: pfd.paged_flash_decode_partials(
         kp, vp, q, tbl, qpos, kvv, pages_per_split=c))
@@ -437,6 +514,24 @@ def check_paged(torch, timer, dtype, Sq, B=8, H=16, KV=2, dh=128, ps=16,
     rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes,
                                                 2 * (dh + dv) * H * pairs)
     return rec
+
+
+def paged_edge_checks(torch, timer):
+    """The bf16 paged partials at every PAGED_EDGES case and HEAD_DIMS
+    pair, on paged_case's odd pool; untimed."""
+    from repro_torch.kernels.paged_flash_decode import HEAD_DIMS
+    recs = {}
+    for dk, dv in HEAD_DIMS:
+        kv = 16 if dk != dv else 2
+        for ps in PAGED_EDGES_PS:
+            for sq in PAGED_EDGES_SQ:
+                for c in PAGED_EDGES_C:
+                    recs[f"dk{dk}_dv{dv}_ps{ps}_sq{sq}_c{c or 'eng'}"] = \
+                        check_paged(torch, timer, torch.bfloat16, sq, KV=kv,
+                                    dh=dk, dv=dv, ps=ps, P=2048 // ps, c=c,
+                                    odd=True, edge=True, timed=False)
+        torch.cuda.empty_cache()
+    return recs
 
 
 def mla_case(torch, dtype, B, H, r, dr, ps, P, seed):
@@ -531,35 +626,15 @@ def check_mla(torch, timer, dtype, P, B=8, H=16, r=512, dr=64, ps=16,
 
 def quant_gqa_case(torch, dtype, fmt, Sq, B=8, H=16, KV=2, dh=128, ps=16,
                    P=128, seed=0):
-    """Quantized K/V pools (quantized on the card by the port's
-    ``PageFormat``) at qwen2.5-3b's widths, with the odd cases: slot 0
-    has a hole mid-table, slot 1 maps one page past its filled rows, the
-    last slot is inactive (position -1, nothing filled, its pages still
-    mapped); the others' fills spread over the table."""
-    import numpy as np
-    rng = np.random.RandomState(seed)
-    n = B * P
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    kf, vf = (torch.randn((n, ps, KV, dh), generator=g, device="cuda")
-              .to(dtype) for _ in range(2))
+    """``paged_case``'s odd pool at qwen2.5-3b's widths (a hole, a page
+    past a slot's filled rows, an inactive slot), its K/V quantized on the
+    card by the port's ``PageFormat``."""
+    kf, vf, q, tbl, qpos, kvv, fill = paged_case(torch, dtype, B, Sq, H, KV,
+                                                 dh, ps, P, seed, odd=True)
     kq, ks = fmt.quantize_rows(kf)
     vq, vs = fmt.quantize_rows(vf)
-    q = torch.randn((B, Sq, H, dh), generator=g, device="cuda").to(dtype)
-    fill = np.linspace(Sq + 24, P * ps - 8, B).astype(np.int64)
-    tbl = np.full((B, P), -1, np.int32)
-    perm = rng.permutation(n)
-    k = 0
-    for b in range(B):
-        m = min(-(-int(fill[b]) // ps) + (b == 1), P)
-        tbl[b, :m] = perm[k:k + m]
-        k += m
-    tbl[0, 1] = -1                                   # a hole
-    qpos = (fill[:, None] - Sq + np.arange(Sq)[None, :]).astype(np.int32)
-    qpos[-1] = -1                                    # the inactive slot
-    fill[-1] = 0
-    as_t = lambda a: torch.from_numpy(a).to("cuda")  # noqa: E731
-    return (kq, vq, ks, vs, q, as_t(tbl), as_t(qpos),
-            as_t(fill.astype(np.int32)), tbl, qpos, fill)
+    return (kq, vq, ks, vs, q, tbl, qpos, kvv, tbl.cpu().numpy(),
+            qpos.cpu().numpy(), fill)
 
 
 def check_paged_quant(torch, timer, dtype, fmt, Sq, c=None, timed=False):
@@ -1041,10 +1116,30 @@ def serve(torch, card, cfg, params, tag):
     counters = {n: (lambda m=m: m.launches) for n, m in kernels.items()}
     # the matmuls' second, split-K reduce kernel (counted apart)
     counters["matmul_split_k_reduce"] = lambda: mm.reduce_launches
+    log = record_dispatches(eng, counters)
     wall, per_decode = drive(torch, eng, reqs, counters)
     eng.drain()
     launches = {n: c() for n, c in counters.items()}
     per_decode = per_decode or {n: None for n in counters}
+    # each dispatch kind runs its one attention kernel once per layer: a
+    # fresh wave the flash forward, a resumed wave the paged kernel's
+    # chunk route, a decode step its decode route
+    want = {"fresh": "flash_attention_fwd",
+            "resumed": "paged_flash_decode_partials",
+            "decode": "paged_flash_decode_partials"}
+    attn = ("flash_attention_fwd", "paged_flash_decode_partials")
+    kinds = {k: 0 for k in want}
+    by_kind = {k: {n: 0 for n in counters} for k in want}
+    for kind, got in log:
+        kinds[kind] += 1
+        for n in counters:
+            by_kind[kind][n] += got[n]
+        exp = {n: (cfg.n_layers if n == want[kind] else 0) for n in attn}
+        if {n: got[n] for n in attn} != exp:
+            fail(f"{tag}: a {kind} dispatch launched {got}, want {exp} of "
+                 "the attention kernels")
+    if min(kinds.values()) < 1:
+        fail(f"{tag}: dispatch kinds {kinds}: each must run at least once")
     for r in reqs:
         if not r.done or r.failed or len(r.out_tokens) != sc.max_new_tokens:
             fail(f"{tag}: request {r.rid}: done={r.done} failed={r.failed} "
@@ -1070,6 +1165,7 @@ def serve(torch, card, cfg, params, tag):
                       "tokens_per_s": n_tok / wall, "stats": st,
                       "packed_weight_bytes": packed, "launches": launches,
                       "launches_per_decode_tick": per_decode,
+                      "dispatches": kinds, "launches_by_kind": by_kind,
                       "card": card}), flush=True)
     # teacher-forced logits of two finished requests (the shared-prefix
     # one and the longest, both multi-chunk) against the plain forward
@@ -1099,7 +1195,7 @@ def serve(torch, card, cfg, params, tag):
                       "requests": errs}), flush=True)
     del eng
     torch.cuda.empty_cache()
-    return launches, per_decode
+    return launches, per_decode, by_kind
 
 
 def serve_f32(torch, quant=None):
@@ -1672,8 +1768,23 @@ def kernel_checks(torch, timer):
                 torch, timer, dt, 128, ps=ps, c=c)
     more = [r for k, r in flash.items()
             if k not in ("dk128_dv128", "dk192_dv128")]
-    for rec in recs + list(mla.values()) + more:
+    edges = paged_edge_checks(torch, timer)
+    for rec in recs + list(mla.values()) + more + list(edges.values()):
         print(json.dumps(dict(phase="kernel", **rec)), flush=True)
+    print(json.dumps({"phase": "paged_edges", "cases": len(edges),
+                      "by_route": {route: {
+                          "cases": sum(r["route"] == route
+                                       for r in edges.values()),
+                          "max_abs_err": max((r["max_abs_err"]
+                                              for r in edges.values()
+                                              if r["route"] == route),
+                                             default=None)}
+                          for route in ("chunk", "decode")},
+                      "skipped_rows": sum(r["skipped"]
+                                          for r in edges.values()),
+                      "min_planted_shift_err": min(
+                          r["planted_shift_err"] for r in edges.values()),
+                      "tol": PAGED_EDGE_TOL_BF16}), flush=True)
     return recs, mla, flash
 
 
@@ -1718,13 +1829,13 @@ def main() -> None:
     cfg = get_config("qwen2.5-3b")
     raw = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                       device="cuda")
-    launches, per_decode = serve(torch, card, cfg, raw, "bf16")
+    launches, per_decode, by_kind = serve(torch, card, cfg, raw, "bf16")
     for tag in ("w4a16", "w8a8"):
         qcfg = cfg.with_(quant=parse_quant(tag))
         packed, n = quantize_for_serving(qcfg, raw)
         print(json.dumps({"phase": "quantize_for_serving", "quant": tag,
                           "packed_tensors": n}), flush=True)
-        q_launches, q_per = serve(torch, card, qcfg, packed, tag)
+        q_launches, q_per, _ = serve(torch, card, qcfg, packed, tag)
         name = "wo_matmul" if tag.endswith("a16") else "mpq_matmul"
         launches[name], per_decode[name] = q_launches[name], q_per[name]
         del packed
@@ -1795,7 +1906,7 @@ def main() -> None:
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                 "shapes": rec["shapes"]}
-    def quant_path(rec):
+    def numbers(rec):
         return {k: rec[k] for k in ("max_abs_err", "kernel_ms", "plain_ms",
                                     "bound_ms", "bound_by", "shapes")}
     # the decode-time w_down case (K = 11008) stands for each matmul
@@ -1833,17 +1944,23 @@ def main() -> None:
                            library_ratio=mla_recs["flash"]["library_ratio"]),
              dk32=pair(flash_recs["dk32_dv32"]),
              dk64=pair(flash_recs["dk64_dv64"])),
+        # the decode route's numbers, with the chunk route's (a resumed
+        # 256-row chunk) and each route's launches in phase 3 beside them
         dict(kernel_entry("paged_flash_decode_partials",
                           "paged_flash_decode.cu",
                           "src/repro/kernels/paged_flash_decode.py:129",
                           launches["paged_flash_decode_partials"], recs[2],
-                          PAGED_DESIGN),
+                          {r: PAGED_DESIGN[r] for r in ("decode", "chunk")}),
+             launches_by_route={
+                 "decode": by_kind["decode"]["paged_flash_decode_partials"],
+                 "chunk": by_kind["resumed"]["paged_flash_decode_partials"]},
+             resumed=numbers(recs[3]),
              mla_path=mla_path("paged_flash_decode_partials",
                                mla_recs["paged"])),
         kernel_entry("mla_paged_decode_partials", "mla_paged_decode.cu",
                      "src/repro/kernels/paged_flash_decode.py:299",
                      mla_launches["mla_paged_decode_partials"],
-                     mla_recs["mla_P128"], PAGED_DESIGN),
+                     mla_recs["mla_P128"], FMA_DESIGN),
         packed_entry("wo_matmul", "src/repro/kernels/mpq_matmul.py:56"),
         packed_entry("mpq_matmul", "src/repro/kernels/mpq_matmul.py:32"),
         # the quantized kernels: int8 at decode, with int4 and the
@@ -1852,16 +1969,16 @@ def main() -> None:
                           "paged_flash_decode.cu",
                           "src/repro/kernels/paged_flash_decode.py:168",
                           kv_launches["paged_flash_decode_partials_quant"],
-                          q_recs["gqa_int8_sq1_ceng_bf16"], PAGED_DESIGN),
-             int4=quant_path(q_recs["gqa_int4_sq1_ceng_bf16"]),
-             resumed_int8=quant_path(q_recs["gqa_int8_sq256_ceng_bf16"]),
-             resumed_int4=quant_path(q_recs["gqa_int4_sq256_ceng_bf16"])),
+                          q_recs["gqa_int8_sq1_ceng_bf16"], FMA_DESIGN),
+             int4=numbers(q_recs["gqa_int4_sq1_ceng_bf16"]),
+             resumed_int8=numbers(q_recs["gqa_int8_sq256_ceng_bf16"]),
+             resumed_int4=numbers(q_recs["gqa_int4_sq256_ceng_bf16"])),
         dict(kernel_entry("mla_paged_decode_partials_quant",
                           "mla_paged_decode.cu",
                           "src/repro/kernels/paged_flash_decode.py:337",
                           kv_launches["mla_paged_decode_partials_quant"],
-                          q_recs["mla_int8_ps16_ceng_bf16"], PAGED_DESIGN),
-             int4=quant_path(q_recs["mla_int4_ps16_ceng_bf16"])),
+                          q_recs["mla_int8_ps16_ceng_bf16"], FMA_DESIGN),
+             int4=numbers(q_recs["mla_int4_ps16_ceng_bf16"])),
     ]}
     print(card, flush=True)
     print(json.dumps(line), flush=True)

@@ -33,15 +33,57 @@
 // operations per cached K/V row of dk + dv elements, far below the card's ~295
 // operations per byte, so it is memory-bound: the least time is the
 // mapped, live pages' bytes over 3.35 TB/s (a quantized pool moves 2x /
-// 4x fewer of them than bf16, plus 8 bytes of scales a row).  The design
-// reads each live page once per (slot, KV head) and keeps the gathered
-// (and dequantized) window out of device memory: one block per (row tile
-// of Sq*G query rows, split, slot, KV head) reads its own table entries
-// and stages each page in shared memory as float32, 16 rows at a time.
-// For a resumed chunk (Sq = a whole prefill chunk) the partials would
-// grow as Sq * P; the caller then raises c so that S stays small, and
-// each block walks its c pages in order.
+// 4x fewer of them than bf16, plus 8 bytes of scales a row).  A resumed
+// chunk (Sq = a whole prefill chunk, 256 rows) does ~Sq * G times more
+// operations on the same bytes: ~17 GFLOP at qwen2.5-3b's serving shape
+// against ~86 MB, of which the float32 partials are most.  The byte
+// bound still wins against the tensor cores' rate, but on the CUDA cores
+// (67 TFLOP/s in float32) the products alone would take ~10x the bound.
+// The partials grow as Sq * P, so
+// the caller raises c there so that S stays small, and each block walks
+// its c pages in order.
+//
+// Every route reads each live page once per (slot, KV head), keeps the
+// gathered window out of device memory, and launches one block per (row
+// tile of the Sq * G query rows, split, slot, KV head): GQA packs the G
+// heads of a KV head and consecutive query positions into one tile
+// (row R = query R / G, head R % G), so one K/V read serves all of them.
+// Each block reads its own table entries.  The route is chosen before
+// launch by (dtype, bits, rows); none falls back on another:
+//
+// * bf16 on an fp pool with Sq * G > 16 rows (resumed and MLA chunks),
+//   `paged_partials_mma`: FA2 on `mma.sync` m16n8k16 (bf16 in, float32
+//   sums), as the flash forward's bf16 route.  One block of four warps
+//   serves a 64-row tile; each warp owns 16 rows.  K and V come in
+//   64-key tiles (four pages at page 16, two at 32) through a two-slot
+//   ring filled by 16-byte `cp.async`: a cache row's slice for one KV
+//   head is dk * 2 contiguous bytes, rows strided by KV * dk * 2.  Before
+//   a tile is copied, 64 threads look up its keys' pool rows in the
+//   table (-1: unmapped, at or past the split's end, kv_valid or the
+//   tile's largest query position), so dead rows are zero-filled and
+//   never read, and one `__syncthreads_and` tells whether the whole tile
+//   is live.  Q is staged once, in the second K slot, and its fragments
+//   ((q * scale) rounded to bf16) stay in registers; scores, the running
+//   max and sum and the unnormalised acc stay in registers, and P becomes
+//   the PV product's A fragments, rounded to bf16 there.  The key loop
+//   stops at the tile's largest query position and at kv_valid; the
+//   masks (dead key, kpos > qpos) run only on tiles that are not whole or
+//   cross a row's position.  A row that sees no key keeps m = -1e30, its
+//   weights are 0 by the guard on masked scores, and it writes exactly
+//   (-1e30, 0, 0).  Shared memory: two slots of 64 K and V rows in bf16,
+//   padded by 16 bytes a row, 68 KB at 128 / 128 (three blocks an SM),
+//   84 KB at 192 / 128 (a slot of 43 KB; two blocks an SM).
+// * everything else (decode rows, float32, quantized pools),
+//   `paged_partials_kernel`: the CUDA-core FMA tile of `flash_tile.cuh`,
+//   16-row blocks for decode and 64-row blocks otherwise.  Each page is
+//   staged in shared memory as float32 (dequantized first from a
+//   quantized pool), 16 rows at a time.  Float32 on tensor cores would be
+//   TF32, another function.
+#include "mma.cuh"
 #include "page_rows.cuh"
+
+#include <climits>
+#include <type_traits>
 
 namespace {
 
@@ -134,27 +176,6 @@ paged_partials_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T, int BITS, int DK, int DV, int BQ>
-int launch(const void* q, const void* kp, const void* vp, const float* ks,
-           const float* vs, const int* tbl, const int* qpos, const int* kvv,
-           float* m, float* l, float* acc, int B, int Sq, int H, int KV,
-           int ps, int P, int pps, int n_splits, cudaStream_t stream) {
-  using Tile = FlashTile<T, DK, DV, BQ, BK>;
-  using S = stored_t<T, BITS>;
-  static bool smem_ok = false;
-  const size_t smem = Tile::smem_bytes();
-  cudaError_t e =
-      allow_smem(paged_partials_kernel<T, BITS, DK, DV, BQ>, smem, &smem_ok);
-  if (e != cudaSuccess) return (int)e;
-  const int rows = Sq * (H / KV);
-  dim3 grid((rows + BQ - 1) / BQ, n_splits, B * KV);
-  paged_partials_kernel<T, BITS, DK, DV, BQ><<<grid, Tile::NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const S*>(kp),
-      static_cast<const S*>(vp), ks, vs, tbl, qpos, kvv, m, l, acc, Sq, H, KV,
-      ps, P, pps, n_splits, 1.f / sqrtf((float)DK));
-  return (int)cudaGetLastError();
-}
-
 // Everything a launch takes besides its compile-time shape.
 struct Args {
   const void *q, *kp, *vp;
@@ -165,24 +186,327 @@ struct Args {
   cudaStream_t s;
 };
 
+template <typename T, int BITS, int DK, int DV, int BQ>
+int launch_fma(const Args& a) {
+  using Tile = FlashTile<T, DK, DV, BQ, BK>;
+  using S = stored_t<T, BITS>;
+  static bool smem_ok = false;
+  const size_t smem = Tile::smem_bytes();
+  cudaError_t e =
+      allow_smem(paged_partials_kernel<T, BITS, DK, DV, BQ>, smem, &smem_ok);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = a.Sq * (a.H / a.KV);
+  dim3 grid((rows + BQ - 1) / BQ, a.ns, a.B * a.KV);
+  paged_partials_kernel<T, BITS, DK, DV, BQ><<<grid, Tile::NT, smem, a.s>>>(
+      static_cast<const T*>(a.q), static_cast<const S*>(a.kp),
+      static_cast<const S*>(a.vp), a.ks, a.vs, a.tbl, a.qpos, a.kvv, a.m, a.l,
+      a.acc, a.Sq, a.H, a.KV, a.ps, a.P, a.pps, a.ns, 1.f / sqrtf((float)DK));
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 chunk route: mma.sync m16n8k16 with a cp.async K/V ring read
+// through the page table.
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+constexpr int MMA_BQ = 64;              // query rows a block (16 a warp)
+constexpr int MMA_BK = 64;              // keys a tile
+constexpr int MMA_NT = 128;             // four warps
+constexpr int MMA_MIN_ROWS = 17;        // Sq * G from which a chunk takes it
+
+// Shared memory: two K slots and two V slots.  Q (BQ = BK rows of the
+// same width as K) is staged in the second K slot and read into
+// registers before that slot is first refilled.
+template <int DK, int DV>
+struct MmaTile {
+  static_assert(MMA_BQ == MMA_BK, "Q borrows a K slot");
+  static constexpr int KS = DK + 8;     // padded row strides (bf16)
+  static constexpr int VS = DV + 8;
+  static constexpr size_t smem_bytes() {
+    return sizeof(bf16) * 2 * MMA_BK * (KS + VS);
+  }
+};
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(MMA_NT)
+paged_partials_mma(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
+                   const bf16* __restrict__ vpool, const int* __restrict__ tbl,
+                   const int* __restrict__ qpos,
+                   const int* __restrict__ kv_valid, float* __restrict__ m_out,
+                   float* __restrict__ l_out, float* __restrict__ acc_out,
+                   int Sq, int H, int KV, int ps, int P, int pages_per_split,
+                   int n_splits, float scale) {
+  constexpr int BQ = MMA_BQ, BK = MMA_BK;
+  constexpr int KS = MmaTile<DK, DV>::KS, VS = MmaTile<DK, DV>::VS;
+  constexpr int KD = DK / 16;           // k-steps of S = Q K^T
+  constexpr int NS = BK / 8;            // score tiles of 8 keys
+  constexpr int NO = DV / 8;            // output tiles of 8 dims
+  constexpr int DKC = DK / 8, DVC = DV / 8;   // 16-byte chunks a row
+  static_assert(DK % 16 == 0 && DV % 16 == 0, "head widths");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // two slots
+  bf16* Vs = Ks + 2 * BK * KS;                       // two slots
+  bf16* Qs = Ks + BK * KS;                           // = K slot 1
+  __shared__ int s_row[2][BK];          // pool row of each key (-1: dead)
+  __shared__ int s_maxq[MMA_NT / 32];
+
+  const int b = blockIdx.z / KV, kvh = blockIdx.z % KV;
+  const int split = blockIdx.y, row0 = blockIdx.x * BQ;
+  const int G = H / KV, rows = Sq * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c4 = lane & 3;
+
+  // this lane's query rows r0 and r0 + 8, and their positions (-1 for a
+  // padding row: it sees nothing and is never stored)
+  const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+  const int qp0 = r0 < rows ? qpos[b * Sq + r0 / G] : -1;
+  const int qp1 = r1 < rows ? qpos[b * Sq + r1 / G] : -1;
+  // the warp's smallest position (a tile past it needs the causal mask)
+  // and the block's largest (the key loop stops there)
+  int wmin = min(r0 < rows ? qp0 : INT_MAX, r1 < rows ? qp1 : INT_MAX);
+  int wmax = max(qp0, qp1);
+#pragma unroll
+  for (int x = 1; x < 32; x <<= 1) {
+    wmin = min(wmin, __shfl_xor_sync(0xffffffffu, wmin, x));
+    wmax = max(wmax, __shfl_xor_sync(0xffffffffu, wmax, x));
+  }
+  if (lane == 0) s_maxq[warp] = wmax;
+  __syncthreads();
+  const int maxq = max(max(s_maxq[0], s_maxq[1]), max(s_maxq[2], s_maxq[3]));
+
+  // keys of this split that any row of the block may see: [ks0, klim)
+  const int* tb = tbl + (size_t)b * P;
+  const int j0 = split * pages_per_split;
+  const int j1 = min(j0 + pages_per_split, P);
+  const int ks0 = j0 * ps;
+  const int klim = min(min(j1 * ps, kv_valid[b]), maxq + 1);
+  const int nt = klim > ks0 ? (klim - ks0 + BK - 1) / BK : 0;
+
+  // Look up tile t's pool rows (-1: dead, zero-filled and never read) and
+  // start its copies; returns whether every key of the tile is live.
+  // Every thread of the block must call it.
+  auto load_kv = [&](int t) -> bool {
+    const int k0 = ks0 + t * BK, st = t & 1;
+    int live = 1;
+    if (tid < BK) {
+      const int kpos = k0 + tid;
+      int row = -1;
+      if (kpos < klim) {
+        const int j = kpos / ps, page = tb[j];
+        if (page >= 0) row = page * ps + (kpos - j * ps);
+      }
+      s_row[st][tid] = row;
+      live = row >= 0;
+    }
+    const bool whole = __syncthreads_and(live);
+    for (int c = tid; c < BK * DKC; c += MMA_NT) {
+      const int r = c / DKC, d = (c % DKC) * 8, row = s_row[st][r];
+      const bf16* src =
+          row >= 0 ? kpool + ((size_t)row * KV + kvh) * DK + d : kpool;
+      cp_async16(Ks + (st * BK + r) * KS + d, src, row >= 0);
+    }
+    for (int c = tid; c < BK * DVC; c += MMA_NT) {
+      const int r = c / DVC, d = (c % DVC) * 8, row = s_row[st][r];
+      const bf16* src =
+          row >= 0 ? vpool + ((size_t)row * KV + kvh) * DV + d : vpool;
+      cp_async16(Vs + (st * BK + r) * VS + d, src, row >= 0);
+    }
+    return whole;
+  };
+
+  float acc[NO][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m0 = ATTN_NEG_INF, m1 = ATTN_NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  if (nt > 0) {                         // block-uniform
+    for (int c = tid; c < BQ * DKC; c += MMA_NT) {
+      const int rr = c / DKC, d = (c % DKC) * 8, R = row0 + rr;
+      const int Rc = min(R, rows - 1);
+      const bf16* src =
+          q + (((size_t)b * Sq + Rc / G) * H + kvh * G + Rc % G) * DK + d;
+      cp_async16(Qs + rr * KS + d, src, R < rows);
+    }
+    bool whole = load_kv(0);
+    cp_async_commit();                  // Q and key tile 0
+    unsigned qf[KD][4];
+    cp_async_wait<0>();
+    __syncthreads();
+    // Q fragments: (q * scale) rounded to bf16, as the reference's
+    // `(q * scale).astype(q.dtype)`
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      ldsm_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * KS + kk * 16 +
+                          (lane >> 4) * 8);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = unpack_bf16(qf[kk][e]);
+        qf[kk][e] = pack_bf16(f.x * scale, f.y * scale);
+      }
+    }
+    __syncthreads();                    // K slot 1 is free of Q
+
+    for (int t = 0; t < nt; ++t) {
+      const bool next = t + 1 < nt ? load_kv(t + 1) : false;
+      cp_async_commit();
+      if (t > 0) {
+        cp_async_wait<1>();             // tile t landed
+        __syncthreads();
+      }
+      const int st = t & 1, k0 = ks0 + t * BK;
+      const bf16* Kt = Ks + st * BK * KS;
+      const bf16* Vt = Vs + st * BK * VS;
+      float s[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+        for (int p = 0; p < NS / 2; ++p) {
+          unsigned kb[4];
+          ldsm_x4(kb, Kt + (16 * p + (lane & 7) + (lane >> 4) * 8) * KS +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * p], qf[kk], kb[0], kb[1]);
+          mma_bf16(s[2 * p + 1], qf[kk], kb[2], kb[3]);
+        }
+      }
+      if (!whole || k0 + BK - 1 > wmin) {
+        // a key counts for a row iff it is live and kpos <= qpos
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * c4 + (e & 1);
+            const int qp = e < 2 ? qp0 : qp1;
+            if (!(s_row[st][col] >= 0 && k0 + col <= qp))
+              s[j][e] = ATTN_NEG_INF;
+          }
+      }
+      float mx0 = ATTN_NEG_INF, mx1 = ATTN_NEG_INF;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      float sum0 = 0.f, sum1 = 0.f;
+      unsigned pf[BK / 16][4];          // P as A fragments of P V
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float mn = e < 2 ? mn0 : mn1;
+          p[e] = s[j][e] <= ATTN_NEG_INF / 2 ? 0.f : expf(s[j][e] - mn);
+        }
+        sum0 += p[0] + p[1];
+        sum1 += p[2] + p[3];
+        pf[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+        pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
+        sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
+      }
+      const float corr0 = expf(m0 - mn0), corr1 = expf(m1 - mn1);
+      l0 = l0 * corr0 + sum0;
+      l1 = l1 * corr1 + sum1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+        acc[i][0] *= corr0;
+        acc[i][1] *= corr0;
+        acc[i][2] *= corr1;
+        acc[i][3] *= corr1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+        for (int p = 0; p < NO / 2; ++p) {
+          unsigned vb[4];
+          ldsm_x4_t(vb, Vt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                 VS + 16 * p + (lane >> 4) * 8);
+          mma_bf16(acc[2 * p], pf[kk], vb[0], vb[1]);
+          mma_bf16(acc[2 * p + 1], pf[kk], vb[2], vb[3]);
+        }
+      }
+      whole = next;
+      __syncthreads();                  // slot st may be refilled
+    }
+    cp_async_wait<0>();
+  }
+
+  // the partials of this lane's valid rows: m and l from the row's first
+  // lane, acc (unnormalised) as float2 pairs straight from the registers
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int R = half ? r1 : r0;
+    if (R >= rows) continue;
+    const size_t os =
+        ((((size_t)b * Sq + R / G) * KV + kvh) * G + R % G) * n_splits + split;
+    if (c4 == 0) {
+      m_out[os] = half ? m1 : m0;
+      l_out[os] = half ? l1 : l0;
+    }
+    float* dst = acc_out + os * DV + 2 * c4;
+#pragma unroll
+    for (int i = 0; i < NO; ++i)
+      *reinterpret_cast<float2*>(dst + 8 * i) =
+          make_float2(acc[i][2 * half], acc[i][2 * half + 1]);
+  }
+}
+
+template <int DK, int DV>
+int launch_mma(const Args& a) {
+  // 16-byte rows: every pool row's slice starts on a 16-byte boundary
+  // when the bases do (dk and dv are multiples of 8)
+  if (!aligned16(a.q) || !aligned16(a.kp) || !aligned16(a.vp) ||
+      !aligned16(a.acc))
+    return (int)cudaErrorInvalidValue;
+  static bool smem_ok = false;
+  const size_t smem = MmaTile<DK, DV>::smem_bytes();
+  cudaError_t e = allow_smem(paged_partials_mma<DK, DV>, smem, &smem_ok);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = a.Sq * (a.H / a.KV);
+  dim3 grid((rows + MMA_BQ - 1) / MMA_BQ, a.ns, a.B * a.KV);
+  paged_partials_mma<DK, DV><<<grid, MMA_NT, smem, a.s>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.kp),
+      static_cast<const bf16*>(a.vp), a.tbl, a.qpos, a.kvv, a.m, a.l, a.acc,
+      a.Sq, a.H, a.KV, a.ps, a.P, a.pps, a.ns, 1.f / sqrtf((float)DK));
+  return (int)cudaGetLastError();
+}
+
+// The route, by (dtype, bits, rows), before launch: a bf16 chunk on an
+// fp pool runs on the tensor cores; decode rows (Sq * G, which rarely
+// fill a 64-row tile) on 16-row FMA blocks; float32 and quantized
+// chunks on 64-row FMA blocks.
 template <typename T, int BITS, int DK, int DV>
-int pick_bq(const Args& a) {
-#define LAUNCH(BQ_)                                                          \
-  return launch<T, BITS, DK, DV, BQ_>(a.q, a.kp, a.vp, a.ks, a.vs, a.tbl,    \
-                                      a.qpos, a.kvv, a.m, a.l, a.acc, a.B,   \
-                                      a.Sq, a.H, a.KV, a.ps, a.P, a.pps,     \
-                                      a.ns, a.s);
-  // decode rows (Sq * G) rarely fill a 64-row tile: use 16-row blocks
-  if (a.Sq * (a.H / a.KV) <= 16) LAUNCH(16)
-  LAUNCH(64)
-#undef LAUNCH
+int pick_route(const Args& a) {
+  const int rows = a.Sq * (a.H / a.KV);
+  if constexpr (std::is_same_v<T, bf16> && BITS == 0) {
+    if (rows >= MMA_MIN_ROWS) return launch_mma<DK, DV>(a);
+  }
+  if (rows < MMA_MIN_ROWS) return launch_fma<T, BITS, DK, DV, 16>(a);
+  return launch_fma<T, BITS, DK, DV, 64>(a);
 }
 
 // fp (dk, dv) pairs: dk = dv heads, and MLA's expanded window (192, 128).
 template <typename T>
 int dispatch_dh(int dk, int dv, const Args& a) {
 #define PICK(DK_, DV_) \
-  if (dk == DK_ && dv == DV_) return pick_bq<T, 0, DK_, DV_>(a);
+  if (dk == DK_ && dv == DV_) return pick_route<T, 0, DK_, DV_>(a);
   PICK(32, 32)
   PICK(64, 64)
   PICK(128, 128)
@@ -195,8 +519,8 @@ int dispatch_dh(int dk, int dv, const Args& a) {
 template <typename T>
 int dispatch_quant(int dh, int bits, const Args& a) {
   if (dh != 128) return (int)cudaErrorInvalidValue;
-  if (bits == 8) return pick_bq<T, 8, 128, 128>(a);
-  if (bits == 4) return pick_bq<T, 4, 128, 128>(a);
+  if (bits == 8) return pick_route<T, 8, 128, 128>(a);
+  if (bits == 4) return pick_route<T, 4, 128, 128>(a);
   return (int)cudaErrorInvalidValue;
 }
 

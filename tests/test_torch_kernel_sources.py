@@ -4,7 +4,9 @@ The card is needed to run a kernel, not to read one: these tests follow
 the calls from each kernel entry through the sources and their headers,
 so that the bf16 routes provably reach a tensor-core instruction and an
 asynchronous copy, the float32 routes stay on the CUDA cores, and no port
-file reaches a library kernel.  The integer matmul, whose int32 sums are
+file reaches a library kernel.  The paged GQA kernel's bf16 chunk route
+runs on the tensor cores; its decode, float32 and quantized routes keep
+the CUDA-core tile of ``flash_tile.cuh``.  The integer matmul, whose int32 sums are
 exact in any order, runs on the s8 tensor-core product."""
 import re
 from pathlib import Path
@@ -15,6 +17,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mpq_matmul as mm
+from repro_torch.kernels import paged_flash_decode as pfd
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -24,6 +27,9 @@ MMA_BF16 = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
 MMA_S8 = "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"
 CALL = re.compile(r"\b(\w+)\s*(?:<[^<>;(){}]*>)?\s*(?:<<<[^>]*>>>)?\s*\(")
 INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.M)
+# statements that look like calls: ``for (...) {`` is a loop, not a
+# function named ``for``, and its body is part of the caller's
+KEYWORDS = {"if", "for", "while", "switch", "return", "sizeof", "constexpr"}
 
 
 def _includes(name):
@@ -71,7 +77,8 @@ def _reach(text, name):
     while todo:
         body = _body(text, todo.pop()) or ""
         for callee in CALL.findall(body):
-            if callee not in seen and _body(text, callee) is not None:
+            if callee not in seen and callee not in KEYWORDS and \
+                    _body(text, callee) is not None:
                 seen.add(callee)
                 todo.append(callee)
     return seen
@@ -81,6 +88,7 @@ def _reach(text, name):
     ("flash_attention.cu", "launch_mma", "flash_fwd_mma"),
     ("mpq_matmul.cu", "launch_wo_mma", "wo_mma_rows"),
     ("mpq_matmul.cu", "launch_wo_mma", "wo_mma_cols"),
+    ("paged_flash_decode.cu", "launch_mma", "paged_partials_mma"),
 ])
 def test_bf16_routes_reach_tensor_cores_and_async_copies(source, entry,
                                                          kernel):
@@ -137,6 +145,8 @@ def test_float32_routes_stay_on_the_cuda_cores(source, entry, kernel):
     ("flash_attention.cu", "flash_attention_fwd",
      {"launch_mma", "launch_fma"}),
     ("mpq_matmul.cu", "wo_matmul", {"launch_wo_mma", "launch_wo_fma"}),
+    ("paged_flash_decode.cu", "paged_flash_decode_partials",
+     {"launch_mma", "launch_fma"}),
 ])
 def test_the_dtype_chooses_the_route_before_launch(source, entry, routes):
     text = _text(source)
@@ -146,12 +156,42 @@ def test_the_dtype_chooses_the_route_before_launch(source, entry, routes):
 
 
 def test_paged_kernels_still_include_flash_tile():
-    """The redesign leaves the four paged kernels' shared tile alone."""
-    for src in ("paged_flash_decode.cu", "mla_paged_decode.cu"):
-        assert "flash_tile.cuh" in _includes(src), src
-        assert "mma.cuh" not in _includes(src), src
+    """The paged GQA source includes the tensor-core header beside the
+    shared tile, for its bf16 chunk route; the MLA source keeps the tile
+    alone."""
+    assert {"flash_tile.cuh", "mma.cuh"} <= _includes("paged_flash_decode.cu")
+    assert "flash_tile.cuh" in _includes("mla_paged_decode.cu")
+    assert "mma.cuh" not in _includes("mla_paged_decode.cu")
     for src in ("flash_attention.cu", "mpq_matmul.cu"):
         assert "mma.cuh" in _includes(src), src
+
+
+@pytest.mark.parametrize("entry", ["paged_flash_decode_partials",
+                                   "paged_flash_decode_partials_quant"])
+def test_paged_decode_float32_and_quantized_routes_keep_flash_tile(entry):
+    """Both entries reach the CUDA-core kernel, which runs on
+    ``FlashTile`` and reaches no tensor-core instruction or async copy."""
+    text = _text("paged_flash_decode.cu")
+    assert {"pick_route", "launch_fma", "paged_partials_kernel"} <= \
+        _reach(text, entry)
+    assert "FlashTile" in _body(text, "paged_partials_kernel")
+    assert not {"mma_bf16", "ldsm_x4", "ldsm_x4_t", "cp_async16"} & \
+        _reach(text, "paged_partials_kernel")
+
+
+def test_the_paged_route_is_chosen_by_dtype_bits_and_rows():
+    """Only a bf16 chunk on an fp pool (Sq * G > 16 rows, as chip_smoke's
+    ``paged_route``) takes the tensor cores; decode rows take 16-row FMA
+    blocks; the choice is made before launch, with no ``try``."""
+    text = _text("paged_flash_decode.cu")
+    body = _body(text, "pick_route")
+    assert re.search(r"is_same_v<T, bf16> && BITS == 0", body)
+    assert re.search(r"rows >= MMA_MIN_ROWS\) return launch_mma", body)
+    assert re.search(r"rows < MMA_MIN_ROWS\) return launch_fma<T, BITS, "
+                     r"DK, DV, 16>", body)
+    assert body.index("launch_mma") < body.index("launch_fma")
+    assert re.search(r"constexpr int MMA_MIN_ROWS = 17;", text)
+    assert not re.search(r"\btry\b", body)
 
 
 def test_an_edited_header_rebuilds_every_library(tmp_path, monkeypatch):
@@ -181,13 +221,21 @@ def test_no_port_file_names_a_library_kernel():
     assert not hits, hits
 
 
-@pytest.mark.parametrize("call", ["flash", "wo_matmul"])
+@pytest.mark.parametrize("call", ["flash", "wo_matmul", "paged"])
 def test_bf16_wrappers_have_no_fallback_off_the_cpu(call):
     """A bf16 tensor off the CPU reaches the kernel or raises."""
     if call == "flash":
         q = torch.empty(1, 4, 2, 32, dtype=torch.bfloat16, device="meta")
         with pytest.raises(ValueError, match="no kernel"):
             fa.flash_attention(q, q, q)
+    elif call == "paged":
+        q = torch.empty(1, 17, 2, 32, dtype=torch.bfloat16, device="meta")
+        pool = torch.empty(4, 16, 2, 32, dtype=torch.bfloat16, device="meta")
+        tbl = torch.zeros(1, 4, dtype=torch.int32, device="meta")
+        qpos = torch.zeros(1, 17, dtype=torch.int32, device="meta")
+        kvv = torch.zeros(1, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="no kernel"):
+            pfd.paged_flash_decode_partials(pool, pool, q, tbl, qpos, kvv)
     else:
         wp = torch.zeros(32, 16, dtype=torch.int8, device="meta")
         ws = torch.ones(1, 16, device="meta")
