@@ -87,7 +87,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
       kernel 36 times and nothing else (a fresh chunk runs as a resume at
       offset 0, never through the flash kernel); on a quantized latent
       pool a fresh or resumed wave launches the fp paged kernel (192/128)
-      27 times and a decode step the quantized MLA kernel 27 times.  The
+      27 times and a decode step the quantized MLA kernel 27 times; the
+      launches are also summed by dispatch kind (on a GQA pool, fresh and
+      resumed waves take the quantized kernel's chunk route, decode steps
+      its decode route).  The
       pool's bytes (``pool_bytes_per_shard()``) are printed beside the
       bf16 pool's and held to POOL_RATIO_LIMIT.  Every request's
       teacher-forced logits are held against a plain contiguous forward
@@ -113,7 +116,15 @@ a resumed 256-row chunk, at the engine's split and at 1, 2 and 3 pages a
 split; the quantized MLA partials at B 8, H 16, r 512, dr 64, P 128 with
 1, 2 and 3 pages a split and at page 32 with 1 and 2; every case with a
 hole, a page past its slot's position and an inactive slot, whose splits
-must be the exact identities.  The engine's choices are timed in bf16.
+must be the exact identities.  The quantized paged partials also run in
+bf16 at every PAGED_EDGES case (int8 and int4, dk 128, KV 2, page 16
+and 32) and on a fresh 256-row chunk (offset 0, as the engine sends one
+on a quantized pool), each within PAGED_EDGE_TOL_BF16, which the planted
+causal mask one key off must break.  A bf16 chunk (more than 16 Sq x G
+rows) takes the tensor-core route, which must equal, bit for bit, the
+fp kernel's chunk route on the same pool dequantized by
+``PageFormat.dequantize``; every chunk case records that comparison.  The
+engine's choices are timed in bf16.
 
 The second-to-last line is a JSON object listing the ported kernels; the
 last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -306,14 +317,21 @@ WO_DESIGN = {"rows": "mma.sync m16n8k16 bf16, 4-slot cp.async ring, 128x128 "
              "cols": "mma.sync m16n8k16 bf16 on W^T x^T, 4-slot cp.async "
                      "ring, split-K"}
 # the paged GQA kernel's routes (`pick_route` in its .cu, chosen before
-# launch by dtype, bits and Sq * G rows): a bf16 chunk on an fp pool runs
-# on tensor cores, decode rows and float32 on the CUDA cores
+# launch by dtype, bits and Sq * G rows): a bf16 chunk on any pool (fp,
+# int8 or int4) runs on tensor cores, decode rows and float32 on the CUDA
+# cores; a quantized pool's chunk route widens its raw rows to bf16 in
+# shared memory
 PAGED_DESIGN = {"chunk": "mma.sync m16n8k16 bf16, 2-slot cp.async K/V ring "
                          "through the page table (FA2, 4 warps x 16 query "
                          "rows)",
                 "decode": "FMA (CUDA cores), flash_tile.cuh, 16-row blocks",
                 "f32": "FMA (CUDA cores), flash_tile.cuh (f32 route)"}
-FMA_DESIGN = "FMA (CUDA cores)"     # the MLA and quantized paged kernels
+QPAGED_DESIGN = dict(PAGED_DESIGN,
+                     chunk="mma.sync m16n8k16 bf16, 2-slot cp.async ring of "
+                           "the raw int rows and their scales through the "
+                           "page table, widened into one bf16 K/V slot "
+                           "(FA2, 4 warps x 16 query rows)")
+FMA_DESIGN = "FMA (CUDA cores)"     # the MLA kernels
 INT_DESIGN = {"rows": "mma.sync m16n8k32 s8, 4-slot cp.async ring, 128x128 "
                       "tiles of 4 warps (64x64)",
               "cols": "mma.sync m16n8k32 s8 on W^T x^T, 4-slot cp.async "
@@ -398,8 +416,8 @@ def flash_checks(torch, timer):
 
 
 def paged_route(torch, dtype, Sq, H, KV):
-    """The paged GQA kernel's route for a call on an fp pool (the .cu's
-    `pick_route`): a key of PAGED_DESIGN."""
+    """The paged GQA kernel's route for a call on any pool (the .cu's
+    `pick_route`): a key of PAGED_DESIGN and QPAGED_DESIGN."""
     if dtype == torch.float32:
         return "f32"
     return "chunk" if Sq * (H // KV) > 16 else "decode"
@@ -475,14 +493,6 @@ def check_paged(torch, timer, dtype, Sq, B=8, H=16, KV=2, dh=128, ps=16,
         tol = PAGED_EDGE_TOL_BF16
     if not err <= tol:
         fail(f"{name}: max |kernel - plain| {err} > {tol}")
-    planted = None
-    if edge:
-        shifted = torch.where(qpos >= 0, qpos + 1, qpos)
-        planted = (_combine_page_partials(*pfd.paged_flash_decode_partials_plain(
-            kp, vp, q, tbl, shifted, kvv, c)) - out).abs().max().item()
-        if not planted > tol:
-            fail(f"{name}: a causal mask one key off reads {planted}, "
-                 f"inside the edge bound {tol}")
     route = paged_route(torch, dtype, Sq, H, KV)
     rec = {"name": "paged_flash_decode_partials", "dtype": str(dtype),
            "route": route, "design": PAGED_DESIGN[route],
@@ -492,7 +502,9 @@ def check_paged(torch, timer, dtype, Sq, B=8, H=16, KV=2, dh=128, ps=16,
            "max_abs_err": err, "tol": tol,
            "skipped": int(skipped.sum().item())}
     if edge:
-        rec["planted_shift_err"] = planted
+        rec["planted_shift_err"] = planted_shift_err(
+            torch, lambda qp: pfd.paged_flash_decode_partials_plain(
+                kp, vp, q, tbl, qp, kvv, c), qpos, out, tol, name)
     del got, want, out
     if dtype != torch.bfloat16 or not timed:
         return rec
@@ -514,6 +526,34 @@ def check_paged(torch, timer, dtype, Sq, B=8, H=16, KV=2, dh=128, ps=16,
     rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes,
                                                 2 * (dh + dv) * H * pairs)
     return rec
+
+
+def planted_shift_err(torch, plain, qpos, out, tol, name):
+    """A PAGED_EDGES case's planted fault: the combined output of
+    ``plain(qpos)`` with every active row seeing one key more, against
+    ``out``; it must land outside ``tol``."""
+    from repro_torch.models.attention import _combine_page_partials
+    shifted = torch.where(qpos >= 0, qpos + 1, qpos)
+    err = (_combine_page_partials(*plain(shifted)) - out).abs().max().item()
+    if not err > tol:
+        fail(f"{name}: a causal mask one key off reads {err}, inside the "
+             f"edge bound {tol}")
+    return err
+
+
+def edge_summary(phase, edges):
+    """One line over PAGED_EDGES records: the cases and the largest error
+    of each route, the skipped rows, the planted fault's smallest error."""
+    return {"phase": phase, "cases": len(edges),
+            "by_route": {route: {
+                "cases": sum(r["route"] == route for r in edges.values()),
+                "max_abs_err": max((r["max_abs_err"] for r in edges.values()
+                                    if r["route"] == route), default=None)}
+                for route in ("chunk", "decode")},
+            "skipped_rows": sum(r["skipped"] for r in edges.values()),
+            "min_planted_shift_err": min(r["planted_shift_err"]
+                                         for r in edges.values()),
+            "tol": PAGED_EDGE_TOL_BF16}
 
 
 def paged_edge_checks(torch, timer):
@@ -625,28 +665,49 @@ def check_mla(torch, timer, dtype, P, B=8, H=16, r=512, dr=64, ps=16,
 # ---------------------------------------------------------------------------
 
 def quant_gqa_case(torch, dtype, fmt, Sq, B=8, H=16, KV=2, dh=128, ps=16,
-                   P=128, seed=0):
+                   P=128, seed=0, fresh=False):
     """``paged_case``'s odd pool at qwen2.5-3b's widths (a hole, a page
     past a slot's filled rows, an inactive slot), its K/V quantized on the
-    card by the port's ``PageFormat``."""
+    card by the port's ``PageFormat``.  ``fresh``: a fresh chunk instead,
+    as the engine sends one on a quantized pool (at offset 0): every
+    slot's Sq rows at positions 0..Sq-1 on its first ceil(Sq / ps) pages,
+    the rest of its table unmapped."""
+    import numpy as np
     kf, vf, q, tbl, qpos, kvv, fill = paged_case(torch, dtype, B, Sq, H, KV,
-                                                 dh, ps, P, seed, odd=True)
+                                                 dh, ps, P, seed,
+                                                 odd=not fresh)
+    if fresh:
+        tbl[:, -(-Sq // ps):] = -1
+        qpos = torch.arange(Sq, dtype=torch.int32,
+                            device="cuda").repeat(B, 1)
+        kvv = torch.full((B,), Sq, dtype=torch.int32, device="cuda")
+        fill = np.full(B, Sq)
     kq, ks = fmt.quantize_rows(kf)
     vq, vs = fmt.quantize_rows(vf)
     return (kq, vq, ks, vs, q, tbl, qpos, kvv, tbl.cpu().numpy(),
             qpos.cpu().numpy(), fill)
 
 
-def check_paged_quant(torch, timer, dtype, fmt, Sq, c=None, timed=False):
-    """The quantized GQA kernel at qwen2.5-3b's shapes, P 128 pages a
-    slot; ``c`` pages a split (default: the engine's choice)."""
+def check_paged_quant(torch, timer, dtype, fmt, Sq, c=None, timed=False,
+                      ps=16, edge=False, fresh=False):
+    """The quantized GQA kernel at qwen2.5-3b's widths, 2048 / ps pages a
+    slot, on quant_gqa_case's pool; ``c`` pages a split (default: the
+    engine's choice).  Each case is held against the plain version and
+    its skipped splits and rows that see no key to the exact identities;
+    a chunk-route record says whether it equals, bit for bit, the fp
+    kernel on the same pool dequantized to ``dtype`` by
+    ``PageFormat.dequantize``, which quant_kernel_checks requires.
+    ``edge``: held to PAGED_EDGE_TOL_BF16, which the plain version with
+    every active row seeing one key more must break (a PAGED_EDGES case,
+    or the fresh chunk).  ``fresh``: quant_gqa_case's fresh chunk."""
     import numpy as np
     from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.models.attention import (_combine_page_partials,
                                               _pages_per_split)
-    B, H, KV, dh, ps, P = 8, 16, 2, 128, 16, 128
+    B, H, KV, dh, P = 8, 16, 2, 128, 2048 // ps
     kq, vq, ks, vs, q, tbl, qpos, kvv, tbl_np, qpos_np, fill = \
-        quant_gqa_case(torch, dtype, fmt, Sq, seed=40 + Sq)
+        quant_gqa_case(torch, dtype, fmt, Sq, ps=ps, P=P, seed=40 + Sq,
+                       fresh=fresh)
     if c is None:
         c = _pages_per_split(B, Sq, H, P, dh)
     kw = dict(k_scale=ks, v_scale=vs, bits=fmt.bits)
@@ -655,25 +716,46 @@ def check_paged_quant(torch, timer, dtype, fmt, Sq, c=None, timed=False):
     plain = lambda: pfd.paged_flash_decode_partials_plain(  # noqa: E731
         kq, vq, q, tbl, qpos, kvv, c, **kw)
     got, want = run(), plain()
+    route = paged_route(torch, dtype, Sq, H, KV)
+    fp = None
+    if route == "chunk":
+        fp = pfd.paged_flash_decode_partials(
+            fmt.dequantize(kq, ks, dtype), fmt.dequantize(vq, vs, dtype), q,
+            tbl, qpos, kvv, pages_per_split=c)
     torch.cuda.synchronize()
-    name = f"quant paged partials {fmt.name} Sq={Sq} c={c} {dtype}"
+    name = f"quant paged partials {fmt.name} Sq={Sq} ps={ps} c={c} " \
+        f"fresh={fresh} {dtype} ({route} route)"
     skipped = want[0] <= -1e30
-    if not (bool(skipped[-1].all()) and bool((got[0][skipped] == -1e30).all())
+    if not fresh and not bool(skipped[-1].all()):
+        fail(f"{name}: the inactive slot's plain partials are not skipped")
+    if not (bool((got[0][skipped] == -1e30).all())
             and bool((got[1][skipped] == 0).all())
             and bool((got[2][skipped] == 0).all())):
         fail(f"{name}: skipped splits are not the exact identities "
              "(-1e30, 0, 0)")
-    err = (_combine_page_partials(*got) - _combine_page_partials(*want)) \
-        .abs().max().item()
+    out = _combine_page_partials(*want)
+    err = (_combine_page_partials(*got) - out).abs().max().item()
     tol = QPAGED_TOL_BF16 if dtype == torch.bfloat16 else QPAGED_TOL_F32
+    if edge:
+        tol = PAGED_EDGE_TOL_BF16
     if not err <= tol:
         fail(f"{name}: max |kernel - plain| {err} > {tol}")
     rec = {"name": "paged_flash_decode_partials_quant", "dtype": str(dtype),
-           "format": fmt.name,
+           "format": fmt.name, "route": route,
+           "design": QPAGED_DESIGN[route],
            "shapes": {"q": [B, Sq, H, dh], "pool": list(kq.shape),
-                      "tbl": [B, P], "pages_per_split": c},
+                      "tbl": [B, P], "pages_per_split": c, "fresh": fresh},
            "max_abs_err": err, "tol": tol,
-           "bitwise": bool(all(torch.equal(a, b) for a, b in zip(got, want)))}
+           "bitwise": bool(all(torch.equal(a, b) for a, b in zip(got, want))),
+           "skipped": int(skipped.sum().item())}
+    if fp is not None:
+        rec["fp_route_bitwise"] = bool(all(torch.equal(a, b)
+                                           for a, b in zip(got, fp)))
+    if edge:
+        rec["planted_shift_err"] = planted_shift_err(
+            torch, lambda qp: pfd.paged_flash_decode_partials_plain(
+                kq, vq, q, tbl, qp, kvv, c, **kw), qpos, out, tol, name)
+    del got, want, fp, out
     if not timed:
         return rec
     rec["kernel_ms"] = timer.ms(run)
@@ -763,13 +845,19 @@ def quant_kernel_checks(torch, timer):
     """Phase 2c: both quantized kernels at int8 and int4, bf16 and
     float32, one page a split and two and three (the GQA kernel also at
     the engine's split of a resumed chunk; the MLA kernel also at page
-    32).  The engine's choices are timed in bf16."""
+    32); then the GQA kernel in bf16 on a fresh chunk at the engine's
+    split and at every PAGED_EDGES case, each held to PAGED_EDGE_TOL_BF16
+    with the planted fault outside.  The engine's choices are timed
+    in bf16.  Each GQA case on the chunk route must equal the fp chunk
+    route on its pool dequantized, bit for bit (the quantized route adds
+    no arithmetic but the dequantizing): held once every record is
+    printed, so that a failing run shows each case's comparison."""
     from repro_torch.core.pageformat import INT4, INT8
-    recs = {}
+    recs, edges = {}, {}
     for fmt in (INT8, INT4):
         for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             for sq in (1, 256):
-                # c None: the engine's split (1 at decode, 43 at Sq 256)
+                # c None: the engine's split (1 at decode, 32 at Sq 256)
                 for c in ((None, 2, 3) if sq == 1 else (None, 1, 2, 3)):
                     recs[f"gqa_{fmt.name}_sq{sq}_c{c or 'eng'}_{tag}"] = \
                         check_paged_quant(torch, timer, dt, fmt, sq, c,
@@ -779,8 +867,28 @@ def quant_kernel_checks(torch, timer):
                     check_mla_quant(torch, timer, dt, fmt, ps=ps, c=c,
                                     timed=c is None and tag == "bf16")
             torch.cuda.empty_cache()
-    for rec in recs.values():
+        recs[f"gqa_{fmt.name}_fresh_sq256_ceng_bf16"] = check_paged_quant(
+            torch, timer, torch.bfloat16, fmt, 256, timed=True, edge=True,
+            fresh=True)
+        for ps in PAGED_EDGES_PS:
+            for sq in PAGED_EDGES_SQ:
+                for c in PAGED_EDGES_C:
+                    edges[f"gqa_{fmt.name}_ps{ps}_sq{sq}_c{c or 'eng'}"] = \
+                        check_paged_quant(torch, timer, torch.bfloat16, fmt,
+                                          sq, c, ps=ps, edge=True)
+        torch.cuda.empty_cache()
+    for rec in list(recs.values()) + list(edges.values()):
         print(json.dumps(dict(phase="kernel_quant", **rec)), flush=True)
+    chunk = {k: r for k, r in list(recs.items()) + list(edges.items())
+             if r.get("route") == "chunk"}
+    print(json.dumps(dict(edge_summary("quant_paged_edges", edges),
+                          chunk_fp_route_bitwise=all(
+                              r["fp_route_bitwise"]
+                              for r in chunk.values()))), flush=True)
+    apart = [k for k, r in chunk.items() if not r["fp_route_bitwise"]]
+    if apart:
+        fail(f"quantized chunk route differs from the fp chunk route on the "
+             f"dequantized pool: {apart}")
     return recs
 
 
@@ -1570,7 +1678,7 @@ def serve_kv(torch, card, cfg, params, fmt, prompts, want, base_tol,
     request's teacher-forced logits are held to kv_logit_check's bound,
     and the same engine with the planted fault (``patch`` = (module,
     wrapper name)), serving requests 0 and 8, must land outside it.
-    Returns the launches of the run."""
+    Returns the launches of the run, in all and by dispatch kind."""
     import numpy as np
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_flash_decode as pfd
@@ -1601,8 +1709,11 @@ def serve_kv(torch, card, cfg, params, fmt, prompts, want, base_tol,
             fail(f"{tag}: request {r.rid}: done={r.done} failed={r.failed} "
                  f"tokens={len(r.out_tokens)}")
     kinds = {k: 0 for k in want}
+    by_kind = {k: {n: 0 for n in counters} for k in want}
     for kind, got in log:
         kinds[kind] += 1
+        for n in counters:
+            by_kind[kind][n] += got[n]
         exp = {n: (cfg.n_layers if n == want[kind] else 0) for n in counters}
         if got != exp:
             fail(f"{tag}: a {kind} dispatch launched {got}, want {exp}")
@@ -1623,6 +1734,7 @@ def serve_kv(torch, card, cfg, params, fmt, prompts, want, base_tol,
                       "tokens_per_s": n_tok / wall, "stats": eng.stats(),
                       "dispatches": kinds, "launches": launches,
                       "launches_per_decode_tick": per_decode,
+                      "launches_by_kind": by_kind,
                       "pool_bytes_per_shard": pool, "fp_pool_bytes": fp_pool,
                       "pool_ratio": pool / fp_pool, "pool_ratio_limit": limit,
                       "card": card}), flush=True)
@@ -1667,7 +1779,7 @@ def serve_kv(torch, card, cfg, params, fmt, prompts, want, base_tol,
                  f"row scales) moves the logits by {rec['fault']} of the "
                  f"row max, inside the bound {rec['fault_tol']}: the check "
                  "cannot see it")
-    return launches
+    return launches, by_kind
 
 
 def serve_kv_f32(torch, name, fmt):
@@ -1771,20 +1883,7 @@ def kernel_checks(torch, timer):
     edges = paged_edge_checks(torch, timer)
     for rec in recs + list(mla.values()) + more + list(edges.values()):
         print(json.dumps(dict(phase="kernel", **rec)), flush=True)
-    print(json.dumps({"phase": "paged_edges", "cases": len(edges),
-                      "by_route": {route: {
-                          "cases": sum(r["route"] == route
-                                       for r in edges.values()),
-                          "max_abs_err": max((r["max_abs_err"]
-                                              for r in edges.values()
-                                              if r["route"] == route),
-                                             default=None)}
-                          for route in ("chunk", "decode")},
-                      "skipped_rows": sum(r["skipped"]
-                                          for r in edges.values()),
-                      "min_planted_shift_err": min(
-                          r["planted_shift_err"] for r in edges.values()),
-                      "tol": PAGED_EDGE_TOL_BF16}), flush=True)
+    print(json.dumps(edge_summary("paged_edges", edges)), flush=True)
     return recs, mla, flash
 
 
@@ -1846,13 +1945,17 @@ def main() -> None:
     kv_launches = {}
     gqa_want = {k: "paged_flash_decode_partials_quant"
                 for k in ("fresh", "resumed", "decode")}
+    # the quantized GQA kernel's launches by dispatch kind, both pools
+    gqa_kinds = {k: 0 for k in gqa_want}
     for fmt in (INT8, INT4):
-        got = serve_kv(torch, card, cfg, raw, fmt,
-                       smoke_traffic(cfg.vocab_size), gqa_want,
-                       SERVE_REL_TOL_BF16,
-                       (attn_mod, "paged_flash_decode_partials"))
+        got, kv_kinds = serve_kv(torch, card, cfg, raw, fmt,
+                                 smoke_traffic(cfg.vocab_size), gqa_want,
+                                 SERVE_REL_TOL_BF16,
+                                 (attn_mod, "paged_flash_decode_partials"))
         for n, v in got.items():
             kv_launches[n] = kv_launches.get(n, 0) + v
+        for k in gqa_kinds:
+            gqa_kinds[k] += kv_kinds[k]["paged_flash_decode_partials_quant"]
     del raw
     torch.cuda.empty_cache()
     serve_f32(torch)
@@ -1868,10 +1971,10 @@ def main() -> None:
                 "resumed": "paged_flash_decode_partials",
                 "decode": "mla_paged_decode_partials_quant"}
     for fmt in (INT8, INT4):
-        got = serve_kv(torch, card, dense, mla_params, fmt,
-                       mla_traffic(dense.vocab_size), mla_want,
-                       SERVE_MLA_REL_TOL,
-                       (mla_mod, "mla_paged_decode_partials"))
+        got, _ = serve_kv(torch, card, dense, mla_params, fmt,
+                          mla_traffic(dense.vocab_size), mla_want,
+                          SERVE_MLA_REL_TOL,
+                          (mla_mod, "mla_paged_decode_partials"))
         for n, v in got.items():
             kv_launches[n] = kv_launches.get(n, 0) + v
     del mla_params
@@ -1897,6 +2000,8 @@ def main() -> None:
                                   rec["name"]])), flush=True)
     for key in ("gqa_int8_sq1_ceng_bf16", "gqa_int4_sq1_ceng_bf16",
                 "gqa_int8_sq256_ceng_bf16", "gqa_int4_sq256_ceng_bf16",
+                "gqa_int8_fresh_sq256_ceng_bf16",
+                "gqa_int4_fresh_sq256_ceng_bf16",
                 "mla_int8_ps16_ceng_bf16", "mla_int4_ps16_ceng_bf16"):
         print(json.dumps(dict(q_recs[key], case=key)), flush=True)
 
@@ -1964,15 +2069,24 @@ def main() -> None:
         packed_entry("wo_matmul", "src/repro/kernels/mpq_matmul.py:56"),
         packed_entry("mpq_matmul", "src/repro/kernels/mpq_matmul.py:32"),
         # the quantized kernels: int8 at decode, with int4 and the
-        # resumed 256-row chunk (GQA) beside it
+        # resumed and fresh 256-row chunks (GQA) beside it, and the GQA
+        # kernel's launches in phase 10 by route (a fresh or resumed wave
+        # takes the chunk route, a decode step the decode route)
         dict(kernel_entry("paged_flash_decode_partials_quant",
                           "paged_flash_decode.cu",
                           "src/repro/kernels/paged_flash_decode.py:168",
                           kv_launches["paged_flash_decode_partials_quant"],
-                          q_recs["gqa_int8_sq1_ceng_bf16"], FMA_DESIGN),
+                          q_recs["gqa_int8_sq1_ceng_bf16"],
+                          {r: QPAGED_DESIGN[r] for r in ("decode", "chunk")}),
+             launches_by_route={
+                 "decode": gqa_kinds["decode"],
+                 "chunk": gqa_kinds["fresh"] + gqa_kinds["resumed"]},
+             launches_by_dispatch=gqa_kinds,
              int4=numbers(q_recs["gqa_int4_sq1_ceng_bf16"]),
              resumed_int8=numbers(q_recs["gqa_int8_sq256_ceng_bf16"]),
-             resumed_int4=numbers(q_recs["gqa_int4_sq256_ceng_bf16"])),
+             resumed_int4=numbers(q_recs["gqa_int4_sq256_ceng_bf16"]),
+             fresh_int8=numbers(q_recs["gqa_int8_fresh_sq256_ceng_bf16"]),
+             fresh_int4=numbers(q_recs["gqa_int4_fresh_sq256_ceng_bf16"])),
         dict(kernel_entry("mla_paged_decode_partials_quant",
                           "mla_paged_decode.cu",
                           "src/repro/kernels/paged_flash_decode.py:337",

@@ -1,9 +1,11 @@
 // Tensor-core building blocks shared by the bf16 routes of the flash
-// forward (`flash_attention.cu`) and the weight-only packed matmul, and
-// by the integer packed matmul (both `mpq_matmul.cu`): 16-byte
-// asynchronous copies into shared memory, `ldmatrix` fragment loads and
-// the warp-level products `mma.sync.aligned.m16n8k16.row.col.f32.bf16
-// .bf16.f32` and (`mma_s8`, below) `m16n8k32.row.col.s32.s8.s8.s32`.
+// forward (`flash_attention.cu`), the paged partials
+// (`paged_flash_decode.cu`) and the weight-only packed matmul, and by
+// the integer packed matmul (both `mpq_matmul.cu`): 16-byte (and, for
+// row scales, 4-byte) asynchronous copies into shared memory,
+// `ldmatrix` fragment loads and the warp-level products
+// `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` and (`mma_s8`,
+// below) `m16n8k32.row.col.s32.s8.s8.s32`.
 //
 // Fragment layouts of m16n8k16 (lane t of a warp, g = t / 4, c = t % 4):
 //   A (16 x 16, row-major):  a0 = A[g][2c..2c+1],   a1 = A[g+8][2c..2c+1],
@@ -34,6 +36,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// 4-byte copy global -> shared through L1 (`.cg` takes 16 bytes only);
+// `full` false writes 4 zero bytes instead (src must still be valid).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0)
                : "memory");
 }
 

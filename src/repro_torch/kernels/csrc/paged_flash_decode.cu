@@ -51,7 +51,8 @@
 // Each block reads its own table entries.  The route is chosen before
 // launch by (dtype, bits, rows); none falls back on another:
 //
-// * bf16 on an fp pool with Sq * G > 16 rows (resumed and MLA chunks),
+// * bf16 with Sq * G > 16 rows (resumed and MLA chunks on fp pools;
+//   fresh and resumed chunks on int8 and int4 pools),
 //   `paged_partials_mma`: FA2 on `mma.sync` m16n8k16 (bf16 in, float32
 //   sums), as the flash forward's bf16 route.  One block of four warps
 //   serves a 64-row tile; each warp owns 16 rows.  K and V come in
@@ -62,7 +63,7 @@
 //   table (-1: unmapped, at or past the split's end, kv_valid or the
 //   tile's largest query position), so dead rows are zero-filled and
 //   never read, and one `__syncthreads_and` tells whether the whole tile
-//   is live.  Q is staged once, in the second K slot, and its fragments
+//   is live.  Q is staged once, in the last K slot, and its fragments
 //   ((q * scale) rounded to bf16) stay in registers; scores, the running
 //   max and sum and the unnormalised acc stay in registers, and P becomes
 //   the PV product's A fragments, rounded to bf16 there.  The key loop
@@ -73,12 +74,23 @@
 //   (-1e30, 0, 0).  Shared memory: two slots of 64 K and V rows in bf16,
 //   padded by 16 bytes a row, 68 KB at 128 / 128 (three blocks an SM),
 //   84 KB at 192 / 128 (a slot of 43 KB; two blocks an SM).
-// * everything else (decode rows, float32, quantized pools),
-//   `paged_partials_kernel`: the CUDA-core FMA tile of `flash_tile.cuh`,
-//   16-row blocks for decode and 64-row blocks otherwise.  Each page is
-//   staged in shared memory as float32 (dequantized first from a
-//   quantized pool), 16 rows at a time.  Float32 on tensor cores would be
-//   TF32, another function.
+//   On a quantized pool (one template on BITS, so the score, softmax,
+//   mask and store code is the fp route's) a `cp.async` cannot
+//   dequantize: the ring holds the raw rows instead (128 bytes a head
+//   slice at int8, 64 at int4, 16-byte aligned when the pool is) and,
+//   copied by the same 64 threads that look up the rows, each key's k
+//   and v scale (0 for a dead key, whose zero-filled bytes then widen
+//   to exact zeros: no stale scale reaches V).  Once a tile has landed,
+//   one shared-memory pass widens it into a single bf16 K and V slot,
+//   element for element as the reference dequantizes (page_rows.cuh), so
+//   on the same pool dequantized to bf16 the two routes give the same
+//   bits.  Shared memory 67 KB at int8 (34 KB of bf16 slots, 33 KB of
+//   ring), 51 KB at int4.
+// * everything else (decode rows, float32), `paged_partials_kernel`: the
+//   CUDA-core FMA tile of `flash_tile.cuh`, 16-row blocks for decode and
+//   64-row blocks for float32 chunks.  Each page is staged in shared
+//   memory as float32 (dequantized first from a quantized pool), 16 rows
+//   at a time.  Float32 on tensor cores would be TF32, another function.
 #include "mma.cuh"
 #include "page_rows.cuh"
 
@@ -206,7 +218,8 @@ int launch_fma(const Args& a) {
 
 // ---------------------------------------------------------------------------
 // bf16 chunk route: mma.sync m16n8k16 with a cp.async K/V ring read
-// through the page table.
+// through the page table; on a quantized pool the ring holds the raw
+// rows, widened to bf16 in shared memory.
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 
@@ -215,39 +228,119 @@ constexpr int MMA_BK = 64;              // keys a tile
 constexpr int MMA_NT = 128;             // four warps
 constexpr int MMA_MIN_ROWS = 17;        // Sq * G from which a chunk takes it
 
-// Shared memory: two K slots and two V slots.  Q (BQ = BK rows of the
-// same width as K) is staged in the second K slot and read into
-// registers before that slot is first refilled.
-template <int DK, int DV>
+// Shared memory.  An fp pool (BITS 0): two bf16 K slots and two V slots,
+// which the copies fill.  A quantized pool: one bf16 K slot and one V
+// slot, widened from a two-slot ring of the raw rows (DK * BITS / 8 and
+// DV * BITS / 8 bytes a row) and their scales, which the copies fill.
+// Q (BQ = BK rows of the same width as K) is staged in the last K slot
+// and read into registers before that slot is first refilled.
+template <int BITS, int DK, int DV>
 struct MmaTile {
   static_assert(MMA_BQ == MMA_BK, "Q borrows a K slot");
   static constexpr int KS = DK + 8;     // padded row strides (bf16)
   static constexpr int VS = DV + 8;
+  static constexpr int SLOTS = BITS ? 1 : 2;   // bf16 K (and V) slots
+  static constexpr int RK = DK * BITS / 8;     // raw bytes a row
+  static constexpr int RV = DV * BITS / 8;
   static constexpr size_t smem_bytes() {
-    return sizeof(bf16) * 2 * MMA_BK * (KS + VS);
+    return sizeof(bf16) * SLOTS * MMA_BK * (KS + VS) +
+           2 * MMA_BK * (RK + RV + (BITS ? 2 * sizeof(float) : 0));
   }
 };
 
-template <int DK, int DV>
+// The head slices of a tile's pool rows (W bytes each, pool rows strided
+// by KV * W bytes) into rows of STRIDE bytes at dst, by 16-byte
+// cp.async; a dead key (rows[r] < 0) is zero-filled and never read.
+template <int W, int STRIDE>
+__device__ __forceinline__ void copy_rows(unsigned char* dst,
+                                          const unsigned char* pool,
+                                          const int* rows, int KV, int kvh,
+                                          int tid) {
+  static_assert(W % 16 == 0 && STRIDE % 16 == 0, "16-byte rows");
+  constexpr int C = W / 16;             // 16-byte chunks a row
+  for (int c = tid; c < MMA_BK * C; c += MMA_NT) {
+    const int r = c / C, d = (c % C) * 16, row = rows[r];
+    const unsigned char* src =
+        row >= 0 ? pool + ((size_t)row * KV + kvh) * W + d : pool;
+    cp_async16(dst + r * STRIDE + d, src, row >= 0);
+  }
+}
+
+// Eight lanes of a quantized row, one from each byte of w (the byte at
+// 8 bits; at 4 its low nibble, or with `hi` its high one), as the
+// reference dequantizes them (page_rows.cuh): the lane times the row
+// scale in one float32 multiply, not contracted into a later add, then
+// rounded to bf16; packed as eight bf16, the lowest byte's lane first.
+template <int BITS>
+__device__ __forceinline__ uint4 widen8(uint2 w, float s, int hi) {
+  unsigned o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned word = (i < 2 ? w.x : w.y) >> (16 * (i & 1));
+    const float lo = static_cast<float>(lane_value<BITS>(word & 255, hi));
+    const float up = static_cast<float>(lane_value<BITS>((word >> 8) & 255,
+                                                         hi));
+    o[i] = pack_bf16(__fmul_rn(lo, s), __fmul_rn(up, s));
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// A tile's raw rows (W lanes in W * BITS / 8 bytes each) widened with
+// their scales into bf16 rows of STRIDE elements at dst.  A thread takes
+// 8 raw bytes at a time: eight threads read 64 contiguous bytes and
+// write 128 contiguous bytes of one bf16 row.  The int4 layout is
+// strided, so byte j's low nibble is lane j and its high nibble lane
+// j + W / 2: 8 bytes widen into two runs of eight lanes.
+template <int BITS, int W, int STRIDE>
+__device__ __forceinline__ void widen_rows(bf16* dst,
+                                           const unsigned char* raw,
+                                           const float* scale, int tid) {
+  constexpr int RB = W * BITS / 8;      // raw bytes a row
+  constexpr int U = RB / 8;             // 8-byte units a row
+  for (int c = tid; c < MMA_BK * U; c += MMA_NT) {
+    const int r = c / U, j = c % U;
+    const float s = scale[r];
+    const uint2 w = *reinterpret_cast<const uint2*>(raw + r * RB + 8 * j);
+    bf16* out = dst + r * STRIDE + 8 * j;
+    *reinterpret_cast<uint4*>(out) = widen8<BITS>(w, s, 0);
+    if constexpr (BITS == 4)
+      *reinterpret_cast<uint4*>(out + W / 2) = widen8<BITS>(w, s, 1);
+  }
+}
+
+// BITS 0: an fp pool of bf16; 8 / 4: a quantized pool with row scales.
+template <int BITS, int DK, int DV>
 __global__ void __launch_bounds__(MMA_NT)
-paged_partials_mma(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
-                   const bf16* __restrict__ vpool, const int* __restrict__ tbl,
+paged_partials_mma(const bf16* __restrict__ q,
+                   const stored_t<bf16, BITS>* __restrict__ kpool,
+                   const stored_t<bf16, BITS>* __restrict__ vpool,
+                   const float* __restrict__ kscale,
+                   const float* __restrict__ vscale,
+                   const int* __restrict__ tbl,
                    const int* __restrict__ qpos,
                    const int* __restrict__ kv_valid, float* __restrict__ m_out,
                    float* __restrict__ l_out, float* __restrict__ acc_out,
                    int Sq, int H, int KV, int ps, int P, int pages_per_split,
                    int n_splits, float scale) {
+  using Tile = MmaTile<BITS, DK, DV>;
   constexpr int BQ = MMA_BQ, BK = MMA_BK;
-  constexpr int KS = MmaTile<DK, DV>::KS, VS = MmaTile<DK, DV>::VS;
+  constexpr int KS = Tile::KS, VS = Tile::VS, NB = Tile::SLOTS;
+  constexpr int RK = Tile::RK, RV = Tile::RV;
   constexpr int KD = DK / 16;           // k-steps of S = Q K^T
   constexpr int NS = BK / 8;            // score tiles of 8 keys
   constexpr int NO = DV / 8;            // output tiles of 8 dims
-  constexpr int DKC = DK / 8, DVC = DV / 8;   // 16-byte chunks a row
+  constexpr int DKC = DK / 8;           // 16-byte chunks a Q row
   static_assert(DK % 16 == 0 && DV % 16 == 0, "head widths");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // two slots
-  bf16* Vs = Ks + 2 * BK * KS;                       // two slots
-  bf16* Qs = Ks + BK * KS;                           // = K slot 1
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // NB slots
+  bf16* Vs = Ks + NB * BK * KS;                      // NB slots
+  bf16* Qs = Ks + (NB - 1) * BK * KS;                // = the last K slot
+  // a quantized pool's two-slot ring: raw K rows, raw V rows, then the
+  // K and V scales of each key (0 for a dead key)
+  unsigned char* Kq = reinterpret_cast<unsigned char*>(Vs + NB * BK * VS);
+  unsigned char* Vq = Kq + 2 * BK * RK;
+  float* Ksc = reinterpret_cast<float*>(Vq + 2 * BK * RV);
+  float* Vsc = Ksc + 2 * BK;
   __shared__ int s_row[2][BK];          // pool row of each key (-1: dead)
   __shared__ int s_maxq[MMA_NT / 32];
 
@@ -284,8 +377,9 @@ paged_partials_mma(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
   const int nt = klim > ks0 ? (klim - ks0 + BK - 1) / BK : 0;
 
   // Look up tile t's pool rows (-1: dead, zero-filled and never read) and
-  // start its copies; returns whether every key of the tile is live.
-  // Every thread of the block must call it.
+  // start its copies (a quantized pool's: raw rows and scales into ring
+  // slot t & 1); returns whether every key of the tile is live.  Every
+  // thread of the block must call it.
   auto load_kv = [&](int t) -> bool {
     const int k0 = ks0 + t * BK, st = t & 1;
     int live = 1;
@@ -298,19 +392,26 @@ paged_partials_mma(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
       }
       s_row[st][tid] = row;
       live = row >= 0;
+      if constexpr (BITS != 0) {
+        cp_async4(Ksc + st * BK + tid, row >= 0 ? kscale + row : kscale,
+                  row >= 0);
+        cp_async4(Vsc + st * BK + tid, row >= 0 ? vscale + row : vscale,
+                  row >= 0);
+      }
     }
     const bool whole = __syncthreads_and(live);
-    for (int c = tid; c < BK * DKC; c += MMA_NT) {
-      const int r = c / DKC, d = (c % DKC) * 8, row = s_row[st][r];
-      const bf16* src =
-          row >= 0 ? kpool + ((size_t)row * KV + kvh) * DK + d : kpool;
-      cp_async16(Ks + (st * BK + r) * KS + d, src, row >= 0);
-    }
-    for (int c = tid; c < BK * DVC; c += MMA_NT) {
-      const int r = c / DVC, d = (c % DVC) * 8, row = s_row[st][r];
-      const bf16* src =
-          row >= 0 ? vpool + ((size_t)row * KV + kvh) * DV + d : vpool;
-      cp_async16(Vs + (st * BK + r) * VS + d, src, row >= 0);
+    const auto* kp = reinterpret_cast<const unsigned char*>(kpool);
+    const auto* vp = reinterpret_cast<const unsigned char*>(vpool);
+    if constexpr (BITS == 0) {
+      copy_rows<DK * 2, KS * 2>(
+          reinterpret_cast<unsigned char*>(Ks + st * BK * KS), kp, s_row[st],
+          KV, kvh, tid);
+      copy_rows<DV * 2, VS * 2>(
+          reinterpret_cast<unsigned char*>(Vs + st * BK * VS), vp, s_row[st],
+          KV, kvh, tid);
+    } else {
+      copy_rows<RK, RK>(Kq + st * BK * RK, kp, s_row[st], KV, kvh, tid);
+      copy_rows<RV, RV>(Vq + st * BK * RV, vp, s_row[st], KV, kvh, tid);
     }
     return whole;
   };
@@ -347,7 +448,7 @@ paged_partials_mma(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
         qf[kk][e] = pack_bf16(f.x * scale, f.y * scale);
       }
     }
-    __syncthreads();                    // K slot 1 is free of Q
+    __syncthreads();                    // the last K slot is free of Q
 
     for (int t = 0; t < nt; ++t) {
       const bool next = t + 1 < nt ? load_kv(t + 1) : false;
@@ -357,8 +458,13 @@ paged_partials_mma(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
         __syncthreads();
       }
       const int st = t & 1, k0 = ks0 + t * BK;
-      const bf16* Kt = Ks + st * BK * KS;
-      const bf16* Vt = Vs + st * BK * VS;
+      if constexpr (BITS != 0) {        // tile t's raw rows into bf16
+        widen_rows<BITS, DK, KS>(Ks, Kq + st * BK * RK, Ksc + st * BK, tid);
+        widen_rows<BITS, DV, VS>(Vs, Vq + st * BK * RV, Vsc + st * BK, tid);
+        __syncthreads();
+      }
+      const bf16* Kt = Ks + (st % NB) * BK * KS;
+      const bf16* Vt = Vs + (st % NB) * BK * VS;
       float s[NS][4];
 #pragma unroll
       for (int j = 0; j < NS; ++j)
@@ -468,38 +574,43 @@ paged_partials_mma(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
   }
 }
 
-template <int DK, int DV>
+template <int BITS, int DK, int DV>
 int launch_mma(const Args& a) {
-  // 16-byte rows: every pool row's slice starts on a 16-byte boundary
-  // when the bases do (dk and dv are multiples of 8)
+  // 16-byte rows: every pool row's slice (DK * 2 bytes in bf16, DK *
+  // BITS / 8 quantized: 128 at int8, 64 at int4) starts on a 16-byte
+  // boundary when the bases do (dk and dv are multiples of 8)
   if (!aligned16(a.q) || !aligned16(a.kp) || !aligned16(a.vp) ||
       !aligned16(a.acc))
     return (int)cudaErrorInvalidValue;
+  using S = stored_t<bf16, BITS>;
   static bool smem_ok = false;
-  const size_t smem = MmaTile<DK, DV>::smem_bytes();
-  cudaError_t e = allow_smem(paged_partials_mma<DK, DV>, smem, &smem_ok);
+  const size_t smem = MmaTile<BITS, DK, DV>::smem_bytes();
+  cudaError_t e =
+      allow_smem(paged_partials_mma<BITS, DK, DV>, smem, &smem_ok);
   if (e != cudaSuccess) return (int)e;
   const int rows = a.Sq * (a.H / a.KV);
   dim3 grid((rows + MMA_BQ - 1) / MMA_BQ, a.ns, a.B * a.KV);
-  paged_partials_mma<DK, DV><<<grid, MMA_NT, smem, a.s>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.kp),
-      static_cast<const bf16*>(a.vp), a.tbl, a.qpos, a.kvv, a.m, a.l, a.acc,
-      a.Sq, a.H, a.KV, a.ps, a.P, a.pps, a.ns, 1.f / sqrtf((float)DK));
+  paged_partials_mma<BITS, DK, DV><<<grid, MMA_NT, smem, a.s>>>(
+      static_cast<const bf16*>(a.q), static_cast<const S*>(a.kp),
+      static_cast<const S*>(a.vp), a.ks, a.vs, a.tbl, a.qpos, a.kvv, a.m, a.l,
+      a.acc, a.Sq, a.H, a.KV, a.ps, a.P, a.pps, a.ns,
+      1.f / sqrtf((float)DK));
   return (int)cudaGetLastError();
 }
 
-// The route, by (dtype, bits, rows), before launch: a bf16 chunk on an
-// fp pool runs on the tensor cores; decode rows (Sq * G, which rarely
-// fill a 64-row tile) on 16-row FMA blocks; float32 and quantized
-// chunks on 64-row FMA blocks.
+// The route, by (dtype, bits, rows), before launch: decode rows (Sq * G,
+// which rarely fill a 64-row tile) on 16-row FMA blocks; a bf16 chunk
+// on any pool (fp, int8 or int4) on the tensor cores; a float32 chunk on
+// 64-row FMA blocks.
 template <typename T, int BITS, int DK, int DV>
 int pick_route(const Args& a) {
   const int rows = a.Sq * (a.H / a.KV);
-  if constexpr (std::is_same_v<T, bf16> && BITS == 0) {
-    if (rows >= MMA_MIN_ROWS) return launch_mma<DK, DV>(a);
-  }
   if (rows < MMA_MIN_ROWS) return launch_fma<T, BITS, DK, DV, 16>(a);
-  return launch_fma<T, BITS, DK, DV, 64>(a);
+  if constexpr (std::is_same_v<T, bf16>) {
+    return launch_mma<BITS, DK, DV>(a);
+  } else {
+    return launch_fma<T, BITS, DK, DV, 64>(a);
+  }
 }
 
 // fp (dk, dv) pairs: dk = dv heads, and MLA's expanded window (192, 128).

@@ -24,13 +24,15 @@ built with nvcc for ``sm_90a`` and called through ctypes:
 Both are followed by the reference's combine.  A quantized kernel
 dequantizes each page as it stages it, with the reference's op sequence
 (unpack, one float32 multiply by the row scale, a rounding to the query
-type), and runs the fp kernel's CUDA-core score and softmax code.
+type), and runs the fp kernel's score and softmax code.
 
 The GQA source chooses its route before launch by (dtype, bits, rows =
-Sq x H / KV): a bf16 chunk (rows > 16) on an fp pool, i.e. every resumed
-GQA chunk and MLA's expanded window, runs on the tensor cores
-(``mma.sync`` with a ``cp.async`` K/V ring read through the page table);
-decode rows, float32 and quantized pools run the CUDA-core tile of
+Sq x H / KV): a bf16 chunk (rows > 16) on any pool, i.e. every resumed
+GQA chunk, MLA's expanded window and every GQA chunk on an int8 or int4
+pool (fresh ones included), runs on the tensor cores (``mma.sync`` with
+a ``cp.async`` K/V ring read through the page table; a quantized pool's
+raw rows and scales go through the ring and are widened to bf16 in
+shared memory); decode rows and float32 run the CUDA-core tile of
 ``flash_tile.cuh``.  No route falls back on another (the ``.cu`` head
 says how each works).
 

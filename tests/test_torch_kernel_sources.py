@@ -5,9 +5,11 @@ the calls from each kernel entry through the sources and their headers,
 so that the bf16 routes provably reach a tensor-core instruction and an
 asynchronous copy, the float32 routes stay on the CUDA cores, and no port
 file reaches a library kernel.  The paged GQA kernel's bf16 chunk route
-runs on the tensor cores; its decode, float32 and quantized routes keep
-the CUDA-core tile of ``flash_tile.cuh``.  The integer matmul, whose int32 sums are
-exact in any order, runs on the s8 tensor-core product."""
+runs on the tensor cores on fp, int8 and int4 pools (a quantized pool's
+raw rows widened to bf16 in shared memory); its decode and float32
+routes keep the CUDA-core tile of ``flash_tile.cuh``.  The integer
+matmul, whose int32 sums are exact in any order, runs on the s8
+tensor-core product."""
 import re
 from pathlib import Path
 
@@ -89,6 +91,7 @@ def _reach(text, name):
     ("mpq_matmul.cu", "launch_wo_mma", "wo_mma_rows"),
     ("mpq_matmul.cu", "launch_wo_mma", "wo_mma_cols"),
     ("paged_flash_decode.cu", "launch_mma", "paged_partials_mma"),
+    ("paged_flash_decode.cu", "dispatch_quant", "paged_partials_mma"),
 ])
 def test_bf16_routes_reach_tensor_cores_and_async_copies(source, entry,
                                                          kernel):
@@ -147,6 +150,8 @@ def test_float32_routes_stay_on_the_cuda_cores(source, entry, kernel):
     ("mpq_matmul.cu", "wo_matmul", {"launch_wo_mma", "launch_wo_fma"}),
     ("paged_flash_decode.cu", "paged_flash_decode_partials",
      {"launch_mma", "launch_fma"}),
+    ("paged_flash_decode.cu", "paged_flash_decode_partials_quant",
+     {"launch_mma", "launch_fma"}),
 ])
 def test_the_dtype_chooses_the_route_before_launch(source, entry, routes):
     text = _text(source)
@@ -168,9 +173,10 @@ def test_paged_kernels_still_include_flash_tile():
 
 @pytest.mark.parametrize("entry", ["paged_flash_decode_partials",
                                    "paged_flash_decode_partials_quant"])
-def test_paged_decode_float32_and_quantized_routes_keep_flash_tile(entry):
-    """Both entries reach the CUDA-core kernel, which runs on
-    ``FlashTile`` and reaches no tensor-core instruction or async copy."""
+def test_paged_decode_and_float32_routes_keep_flash_tile(entry):
+    """Both entries, fp and quantized, reach the CUDA-core kernel for
+    their decode and float32 routes; it runs on ``FlashTile`` and reaches
+    no tensor-core instruction or async copy."""
     text = _text("paged_flash_decode.cu")
     assert {"pick_route", "launch_fma", "paged_partials_kernel"} <= \
         _reach(text, entry)
@@ -180,18 +186,53 @@ def test_paged_decode_float32_and_quantized_routes_keep_flash_tile(entry):
 
 
 def test_the_paged_route_is_chosen_by_dtype_bits_and_rows():
-    """Only a bf16 chunk on an fp pool (Sq * G > 16 rows, as chip_smoke's
-    ``paged_route``) takes the tensor cores; decode rows take 16-row FMA
-    blocks; the choice is made before launch, with no ``try``."""
+    """Decode rows (Sq * G <= 16, as chip_smoke's ``paged_route``) take
+    16-row FMA blocks on any pool; a bf16 chunk takes the tensor cores on
+    an fp, int8 or int4 pool alike (no condition on the bits); a float32
+    chunk never reaches the mma route, only 64-row FMA blocks; the choice
+    is made before launch, with no ``try``."""
     text = _text("paged_flash_decode.cu")
     body = _body(text, "pick_route")
-    assert re.search(r"is_same_v<T, bf16> && BITS == 0", body)
-    assert re.search(r"rows >= MMA_MIN_ROWS\) return launch_mma", body)
-    assert re.search(r"rows < MMA_MIN_ROWS\) return launch_fma<T, BITS, "
-                     r"DK, DV, 16>", body)
-    assert body.index("launch_mma") < body.index("launch_fma")
+    assert re.search(r"if \(rows < MMA_MIN_ROWS\) return launch_fma<T, BITS, "
+                     r"DK, DV, 16>\(a\);", body)
+    assert re.search(r"if constexpr \(std::is_same_v<T, bf16>\) \{\s*"
+                     r"return launch_mma<BITS, DK, DV>\(a\);\s*\} else \{\s*"
+                     r"return launch_fma<T, BITS, DK, DV, 64>\(a\);\s*\}",
+                     body)
+    assert body.index("launch_fma<T, BITS, DK, DV, 16>") < \
+        body.index("launch_mma")
+    assert body.count("launch_mma") == 1 and "BITS ==" not in body and \
+        "BITS !=" not in body
     assert re.search(r"constexpr int MMA_MIN_ROWS = 17;", text)
     assert not re.search(r"\btry\b", body)
+    # fp pools at every built head pair, quantized ones at 128 / 128
+    assert "pick_route<T, 0, DK_, DV_>" in _body(text, "dispatch_dh")
+    quant = _body(text, "dispatch_quant")
+    for bits in (8, 4):
+        assert f"pick_route<T, {bits}, 128, 128>(a)" in quant
+
+
+def test_the_quantized_chunk_route_widens_raw_rows_in_shared_memory():
+    """On a quantized pool the mma kernel copies the raw rows and their
+    scales with ``cp.async`` (a copy cannot dequantize) and widens each
+    element as the reference does: the lane, sign-extended by
+    ``lane_value``, times the row scale in one float32 multiply
+    (``__fmul_rn``, never contracted), rounded to bf16."""
+    text = _text("paged_flash_decode.cu")
+    reached = _reach(text, "paged_partials_mma")
+    assert {"copy_rows", "widen_rows", "widen8", "lane_value", "cp_async4",
+            "cp_async16", "pack_bf16", "mma_bf16"} <= reached, reached
+    assert "__fmul_rn" in _body(text, "widen8")
+    assert "cp.async.ca.shared.global" in _body(text, "cp_async4")
+    kernel = _body(text, "paged_partials_mma")
+    assert re.search(r"if constexpr \(BITS != 0\) \{[^}]*widen_rows<BITS",
+                     kernel)
+    # the score, softmax, mask and store code is one piece of source: one
+    # kernel template on BITS, no second mma kernel
+    assert re.search(r"template <int BITS, int DK, int DV>\s*__global__ "
+                     r"void __launch_bounds__\(MMA_NT\)\s*paged_partials_mma",
+                     text)
+    assert len(re.findall(r"\bmma_bf16\(", kernel)) == 4
 
 
 def test_an_edited_header_rebuilds_every_library(tmp_path, monkeypatch):
