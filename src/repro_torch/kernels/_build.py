@@ -76,7 +76,8 @@ def _finish(name: str, started) -> None:
 
 def build_all(names=SOURCES) -> List[str]:
     """Compile every kernel source in parallel (one nvcc each); returns
-    the ptxas resource lines of the builds that ran."""
+    the ptxas resource lines of the builds that ran, each kernel's after
+    the line naming it (its mangled name)."""
     started = {n: _start(n) for n in names}
     lines: List[str] = []
     for n, s in started.items():
@@ -84,7 +85,8 @@ def build_all(names=SOURCES) -> List[str]:
             _finish(n, s)
             log = (BUILD_DIR / f"{n}.log").read_text()
             lines += [f"{n}: {ln.strip()}" for ln in log.splitlines()
-                      if "registers" in ln or "spill" in ln]
+                      if "registers" in ln or "spill" in ln
+                      or "Compiling entry function" in ln]
     return lines
 
 

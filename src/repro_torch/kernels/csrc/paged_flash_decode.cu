@@ -248,66 +248,6 @@ struct MmaTile {
   }
 };
 
-// The head slices of a tile's pool rows (W bytes each, pool rows strided
-// by KV * W bytes) into rows of STRIDE bytes at dst, by 16-byte
-// cp.async; a dead key (rows[r] < 0) is zero-filled and never read.
-template <int W, int STRIDE>
-__device__ __forceinline__ void copy_rows(unsigned char* dst,
-                                          const unsigned char* pool,
-                                          const int* rows, int KV, int kvh,
-                                          int tid) {
-  static_assert(W % 16 == 0 && STRIDE % 16 == 0, "16-byte rows");
-  constexpr int C = W / 16;             // 16-byte chunks a row
-  for (int c = tid; c < MMA_BK * C; c += MMA_NT) {
-    const int r = c / C, d = (c % C) * 16, row = rows[r];
-    const unsigned char* src =
-        row >= 0 ? pool + ((size_t)row * KV + kvh) * W + d : pool;
-    cp_async16(dst + r * STRIDE + d, src, row >= 0);
-  }
-}
-
-// Eight lanes of a quantized row, one from each byte of w (the byte at
-// 8 bits; at 4 its low nibble, or with `hi` its high one), as the
-// reference dequantizes them (page_rows.cuh): the lane times the row
-// scale in one float32 multiply, not contracted into a later add, then
-// rounded to bf16; packed as eight bf16, the lowest byte's lane first.
-template <int BITS>
-__device__ __forceinline__ uint4 widen8(uint2 w, float s, int hi) {
-  unsigned o[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const unsigned word = (i < 2 ? w.x : w.y) >> (16 * (i & 1));
-    const float lo = static_cast<float>(lane_value<BITS>(word & 255, hi));
-    const float up = static_cast<float>(lane_value<BITS>((word >> 8) & 255,
-                                                         hi));
-    o[i] = pack_bf16(__fmul_rn(lo, s), __fmul_rn(up, s));
-  }
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
-// A tile's raw rows (W lanes in W * BITS / 8 bytes each) widened with
-// their scales into bf16 rows of STRIDE elements at dst.  A thread takes
-// 8 raw bytes at a time: eight threads read 64 contiguous bytes and
-// write 128 contiguous bytes of one bf16 row.  The int4 layout is
-// strided, so byte j's low nibble is lane j and its high nibble lane
-// j + W / 2: 8 bytes widen into two runs of eight lanes.
-template <int BITS, int W, int STRIDE>
-__device__ __forceinline__ void widen_rows(bf16* dst,
-                                           const unsigned char* raw,
-                                           const float* scale, int tid) {
-  constexpr int RB = W * BITS / 8;      // raw bytes a row
-  constexpr int U = RB / 8;             // 8-byte units a row
-  for (int c = tid; c < MMA_BK * U; c += MMA_NT) {
-    const int r = c / U, j = c % U;
-    const float s = scale[r];
-    const uint2 w = *reinterpret_cast<const uint2*>(raw + r * RB + 8 * j);
-    bf16* out = dst + r * STRIDE + 8 * j;
-    *reinterpret_cast<uint4*>(out) = widen8<BITS>(w, s, 0);
-    if constexpr (BITS == 4)
-      *reinterpret_cast<uint4*>(out + W / 2) = widen8<BITS>(w, s, 1);
-  }
-}
-
 // BITS 0: an fp pool of bf16; 8 / 4: a quantized pool with row scales.
 template <int BITS, int DK, int DV>
 __global__ void __launch_bounds__(MMA_NT)
@@ -403,15 +343,17 @@ paged_partials_mma(const bf16* __restrict__ q,
     const auto* kp = reinterpret_cast<const unsigned char*>(kpool);
     const auto* vp = reinterpret_cast<const unsigned char*>(vpool);
     if constexpr (BITS == 0) {
-      copy_rows<DK * 2, KS * 2>(
+      copy_rows<DK * 2, KS * 2, BK, MMA_NT>(
           reinterpret_cast<unsigned char*>(Ks + st * BK * KS), kp, s_row[st],
           KV, kvh, tid);
-      copy_rows<DV * 2, VS * 2>(
+      copy_rows<DV * 2, VS * 2, BK, MMA_NT>(
           reinterpret_cast<unsigned char*>(Vs + st * BK * VS), vp, s_row[st],
           KV, kvh, tid);
     } else {
-      copy_rows<RK, RK>(Kq + st * BK * RK, kp, s_row[st], KV, kvh, tid);
-      copy_rows<RV, RV>(Vq + st * BK * RV, vp, s_row[st], KV, kvh, tid);
+      copy_rows<RK, RK, BK, MMA_NT>(Kq + st * BK * RK, kp, s_row[st], KV,
+                                    kvh, tid);
+      copy_rows<RV, RV, BK, MMA_NT>(Vq + st * BK * RV, vp, s_row[st], KV,
+                                    kvh, tid);
     }
     return whole;
   };
@@ -459,8 +401,10 @@ paged_partials_mma(const bf16* __restrict__ q,
       }
       const int st = t & 1, k0 = ks0 + t * BK;
       if constexpr (BITS != 0) {        // tile t's raw rows into bf16
-        widen_rows<BITS, DK, KS>(Ks, Kq + st * BK * RK, Ksc + st * BK, tid);
-        widen_rows<BITS, DV, VS>(Vs, Vq + st * BK * RV, Vsc + st * BK, tid);
+        widen_rows<BITS, DK, KS, MMA_NT>(Ks, Kq + st * BK * RK,
+                                         Ksc + st * BK, 0, BK, tid);
+        widen_rows<BITS, DV, VS, MMA_NT>(Vs, Vq + st * BK * RV,
+                                         Vsc + st * BK, 0, BK, tid);
         __syncthreads();
       }
       const bf16* Kt = Ks + (st % NB) * BK * KS;

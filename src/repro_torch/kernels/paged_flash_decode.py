@@ -33,8 +33,12 @@ pool (fresh ones included), runs on the tensor cores (``mma.sync`` with
 a ``cp.async`` K/V ring read through the page table; a quantized pool's
 raw rows and scales go through the ring and are widened to bf16 in
 shared memory); decode rows and float32 run the CUDA-core tile of
-``flash_tile.cuh``.  No route falls back on another (the ``.cu`` head
-says how each works).
+``flash_tile.cuh``.  The MLA source chooses by dtype alone: bf16 on any
+latent pool (fp, int8 or int4) runs ``mla_partials_mma`` (the scores and
+the context on ``mma.sync`` from one ``cp.async`` key tile of 64 latent
+rows, which are key and value at once; a quantized pool's raw rows are
+widened to bf16 in shared memory), float32 the FMA kernel.  No route
+falls back on another (the ``.cu`` heads say how each works).
 
 The partials come per SPLIT of the logical page axis: split ``s`` covers
 pages ``[s*c, (s+1)*c)`` with ``c = pages_per_split``.  With ``c = 1``
@@ -42,6 +46,9 @@ they are the reference's per-logical-page partials, identities and all.
 A resumed chunk's per-page partials grow as Sq x P (hundreds of MB per
 layer at serving widths), so the caller raises ``c`` and the kernel
 walks each split's pages in order — the same reduction as the combine.
+MLA decode takes one tile of MLA_TILE_KEYS keys a split, more only
+where its partials would pass the caller's memory budget
+(:func:`repro_torch.models.mla.decode_split`).
 
 Each wrapper takes the plain PyTorch version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  Each launch
@@ -69,6 +76,9 @@ HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
 QUANT_HEAD_DIMS = (128,)
 # (r, dr) the MLA kernels are built for: deepseek-v2's latent widths
 MLA_DIMS = ((512, 64),)
+# keys in one tile of the MLA kernel's bf16 route (MMA_BK in
+# mla_paged_decode.cu); MLA decode's engine split covers one tile
+MLA_TILE_KEYS = 64
 FORMATS = {8: INT8, 4: INT4}      # quantized pools by storage bits
 
 launches = 0          # GQA kernel launches (CUDA path only)
@@ -371,7 +381,11 @@ def mla_paged_decode_partials(pool, q_c, q_rope, tbl, pos, r: int,
     QUANTIZED latent pool (the reference's keywords): ``bits`` 8 or 4, an
     int8 pool of last dim (r + dr) * bits / 8 and ``scale_pool`` (N, ps)
     float32 row scales; one scale covers a whole row, which is
-    dequantized before the split at ``r``."""
+    dequantized before the split at ``r``.
+
+    On the card the dtype picks the kernel's route before launch: bf16
+    runs on the tensor cores (``mla_partials_mma``), float32 on the CUDA
+    cores (``mla_partials_kernel``)."""
     global mla_launches, mla_quant_launches
     _mla_check(pool, q_c, q_rope, tbl, pos, r, pages_per_split, scale_pool,
                bits)
@@ -395,10 +409,12 @@ def mla_paged_decode_partials(pool, q_c, q_rope, tbl, pos, r: int,
         if not t.is_contiguous():
             raise ValueError("mla_paged_decode_partials: inputs must be "
                              "contiguous")
-    if pool.data_ptr() % 16:
-        raise ValueError("mla_paged_decode_partials: the pool must be "
-                         "16-byte aligned (the kernel reads its rows in "
-                         "16-byte vectors)")
+    aligned = [pool] + ([q_c, q_rope] if q_c.dtype == torch.bfloat16
+                        else [])
+    if any(t.data_ptr() % 16 for t in aligned):
+        raise ValueError("mla_paged_decode_partials: the pool (and bf16 "
+                         "queries) must be 16-byte aligned (the kernels "
+                         "read their rows in 16-byte vectors)")
     n_split = -(-p // pages_per_split)
     shape = (b, sq, h, n_split)
     m = torch.empty(shape, dtype=torch.float32, device=pool.device)

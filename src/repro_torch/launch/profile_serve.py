@@ -11,7 +11,12 @@ Serves a full-size model (bf16, random weights; qwen2.5-3b, or
 For each window it prints one JSON line: host wall ms per tick, device
 busy ms per tick (the profiler's summed device time of kernels and
 copies), the device's idle share, host op and stream-sync counts per
-tick, and the device ops that took the most time.  Needs one card.
+tick, the device ops that took the most time, the port's partials
+kernels by name (which route ran), and the device time of the
+flash-decoding combine that follows them (``_combine_page_partials``,
+a few elementwise kernels that no kernel name tells apart): this script
+wraps it in a ``record_function`` range (the model code carries none)
+and sums the kernels launched inside.  Needs one card.
 ``--quant`` packs the weights first (as the serving launcher does);
 ``--kv-bits 8`` or ``4`` stores the KV pool as int8 or int4 pages.
 
@@ -31,17 +36,35 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import QUANT_CHOICES, kv_format, parse_quant
+from repro_torch.models import attention, mla
 from repro_torch.models.common import require_device
 from repro_torch.models.model import init_params, quantize_for_serving
 from repro_torch.serve import Request, ServeConfig, ServingEngine
 
+COMBINE = "combine"                 # the combine's profiler range
 
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
+
+def _wrap_combine():
+    """Wrap the combine, where the GQA and MLA layers call it, in a
+    ``record_function`` range named COMBINE."""
+    for mod in (attention, mla):
+        fn = mod._combine_page_partials
+
+        def run(*a, _fn=fn, **kw):
+            with record_function(COMBINE):
+                return _fn(*a, **kw)
+        mod._combine_page_partials = run
+
+
+def _device_us(evt, own: bool = True) -> float:
+    """An event's device time (us): its own, or with ``own`` False, that
+    of the kernels launched inside it too (a span's)."""
+    names = ("device_time_total", "cuda_time_total")
+    for name in (("self_" + n for n in names) if own else names):
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
@@ -64,12 +87,17 @@ def _window(eng, ticks: int, profiled: bool) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
     # device rows only (kernels, memcpy, memset): an aten op's own row
-    # repeats the device time of the kernels it launched
+    # repeats the device time of the kernels it launched, and the
+    # combine's range has a device row of its own (its span on the
+    # device's timeline, gaps included)
     dev = [(e.key, _device_us(e), e.count) for e in avgs
-           if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+           if e.device_type == DeviceType.CUDA and e.key != COMBINE
+           and _device_us(e) > 0]
     busy = sum(r[1] for r in dev) / 1e3
     dev.sort(key=lambda r: -r[1])
     host = {e.key: e.count for e in avgs if e.device_type == DeviceType.CPU}
+    combine = [e for e in avgs
+               if e.key == COMBINE and e.device_type == DeviceType.CPU]
     return {"wall_ms_per_tick": wall / ticks,
             "device_busy_ms_per_tick": busy / ticks,
             "device_idle_share": 1 - busy / wall,
@@ -80,7 +108,15 @@ def _window(eng, ticks: int, profiled: bool) -> dict:
             "nonzero_per_tick": host.get("aten::nonzero", 0) / ticks,
             "top_device_ops": [{"op": k[:80], "ms_per_tick": us / 1e3 / ticks,
                                 "calls_per_tick": n / ticks}
-                               for k, us, n in dev[:12]]}
+                               for k, us, n in dev[:12]],
+            "combine_device_ms_per_tick": sum(
+                _device_us(e, own=False) for e in combine) / 1e3 / ticks,
+            "combine_calls_per_tick": sum(e.count for e in combine) / ticks,
+            # the port's attention kernels by name (their routes)
+            "partials_kernels": [{"op": k[:100], "ms_per_tick":
+                                  us / 1e3 / ticks, "calls_per_tick":
+                                  n / ticks}
+                                 for k, us, n in dev if "partials_" in k]}
 
 
 def main(argv=None):
@@ -91,6 +127,7 @@ def main(argv=None):
     ap.add_argument("--kv-bits", type=int, default=0, choices=[0, 8, 4])
     args = ap.parse_args(argv)
     dev = require_device("cuda")
+    _wrap_combine()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -18,7 +18,8 @@ dh = 4096 for full K/V.  Three modes, each on a hand-written kernel:
     the table maps the slot's mapped pages onto it;
   * a DECODE step scatters its latent row, absorbs W_UK into the query
     (``q_c``) and runs the compressed-space MLA kernel against the latent
-    pool itself; W_UV is applied to the combined context afterwards.
+    pool itself, one 64-key tile a split (:func:`decode_split`);
+    W_UV is applied to the combined context afterwards.
 
 A QUANTIZED latent pool (``ServeConfig.kv_format`` int8/int4: an int8
 ``ckv`` and a ``ckv_scale`` of row scales, one a row for c_kv and k_rope
@@ -41,7 +42,8 @@ import torch
 
 from repro_torch.core.pageformat import FP
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.paged_flash_decode import mla_paged_decode_partials
+from repro_torch.kernels.paged_flash_decode import (MLA_TILE_KEYS,
+                                                    mla_paged_decode_partials)
 from repro_torch.models.attention import (_combine_page_partials,
                                           _page_partials, _pages_per_split,
                                           cache_page_format)
@@ -147,6 +149,35 @@ def _resume(p, qq, cache, pages, entry, t, ok, off_b, len_b, cfg, fmt):
     return o.reshape(b, s, cfg.n_heads, -1).to(qq.dtype)
 
 
+def mla_decode_pages_per_split(page_size: int, p: int) -> int:
+    """Pages a split of MLA decode's partials covers: one key tile of
+    the bf16 kernel, MLA_TILE_KEYS // ``page_size`` pages (4 at page
+    16, 2 at page 32), at least 1 and at most the table's ``p``.
+
+    It depends on the page size and the table width alone (no device,
+    dtype or config field), so the CPU and the card cut the page axis
+    alike.  One page a split would write per-page float32 partials of
+    H x r (32 KB a page at H 16, r 512) against an 18 KB bf16 page read;
+    one tile a split writes a quarter of them at page 16 and fills the
+    tile's 64 keys.  Of 1, 2, 4 and 8 pages a split at page 16, the
+    bf16 kernel is fastest at 4 on an H100 (``chip_smoke.py``'s
+    ``mla_sweep``, PERF.md §6).  :func:`decode_split` raises it where
+    the partials would pass their memory budget."""
+    return max(1, min(MLA_TILE_KEYS // page_size, p))
+
+
+def decode_split(page_size: int, b: int, sq: int, h: int, p: int,
+                 r: int) -> int:
+    """The pages a split MLA decode runs at: one key tile
+    (:func:`mla_decode_pages_per_split`), or more where the float32
+    partials of (``b``, ``sq``, ``h``) query rows of width ``r`` over
+    ``p`` pages would otherwise pass ``PARTIALS_BYTES_BUDGET``, as
+    ``_pages_per_split`` caps them (at 32 k tokens, page 16, B 32: 32
+    pages a split, 64 MiB a layer, not 512 MiB)."""
+    return max(mla_decode_pages_per_split(page_size, p),
+               _pages_per_split(b, sq, h, p, r))
+
+
 def _decode(p, q_nope, q_rope, cache, pages, entry, pos_b, x_dtype, cfg,
             fmt):
     """Decode: scatter the latent row at ``pos`` (-1 = no write), absorb
@@ -162,7 +193,7 @@ def _decode(p, q_nope, q_rope, cache, pages, entry, pos_b, x_dtype, cfg,
              dict(scale_pool=cache["ckv_scale"], bits=fmt.bits))
     w_uk = p["w_uk"].reshape(r, h, dn)
     q_c = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_uk.float())
-    c = _pages_per_split(b, s, h, pages.shape[1], r)
+    c = decode_split(cache["ckv"].shape[1], b, s, h, pages.shape[1], r)
     m, l, acc = mla_paged_decode_partials(
         cache["ckv"], q_c.to(x_dtype).contiguous(), q_rope.contiguous(),
         pages, pos_b, r, dn + dr, pages_per_split=c, **quant)

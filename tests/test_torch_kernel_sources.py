@@ -7,9 +7,11 @@ asynchronous copy, the float32 routes stay on the CUDA cores, and no port
 file reaches a library kernel.  The paged GQA kernel's bf16 chunk route
 runs on the tensor cores on fp, int8 and int4 pools (a quantized pool's
 raw rows widened to bf16 in shared memory); its decode and float32
-routes keep the CUDA-core tile of ``flash_tile.cuh``.  The integer
-matmul, whose int32 sums are exact in any order, runs on the s8
-tensor-core product."""
+routes keep the CUDA-core tile of ``flash_tile.cuh``.  The MLA decode
+kernel's bf16 route runs its scores and context on the tensor cores from
+one key tile, on fp, int8 and int4 latent pools; its float32 route
+stays on FMA.  The integer matmul, whose int32 sums are exact in any
+order, runs on the s8 tensor-core product."""
 import re
 from pathlib import Path
 
@@ -92,6 +94,9 @@ def _reach(text, name):
     ("mpq_matmul.cu", "launch_wo_mma", "wo_mma_cols"),
     ("paged_flash_decode.cu", "launch_mma", "paged_partials_mma"),
     ("paged_flash_decode.cu", "dispatch_quant", "paged_partials_mma"),
+    ("mla_paged_decode.cu", "mla_paged_decode_partials", "mla_partials_mma"),
+    ("mla_paged_decode.cu", "mla_paged_decode_partials_quant",
+     "mla_partials_mma"),
 ])
 def test_bf16_routes_reach_tensor_cores_and_async_copies(source, entry,
                                                          kernel):
@@ -136,6 +141,7 @@ def test_the_rows_choose_the_integer_route_before_launch():
 @pytest.mark.parametrize("source,entry,kernel", [
     ("flash_attention.cu", "launch_fma", "flash_fwd_fma"),
     ("mpq_matmul.cu", "launch_wo_fma", "wo_kernel"),
+    ("mla_paged_decode.cu", "launch_fma", "mla_partials_kernel"),
 ])
 def test_float32_routes_stay_on_the_cuda_cores(source, entry, kernel):
     """float32 on tensor cores would be TF32, another function."""
@@ -152,6 +158,10 @@ def test_float32_routes_stay_on_the_cuda_cores(source, entry, kernel):
      {"launch_mma", "launch_fma"}),
     ("paged_flash_decode.cu", "paged_flash_decode_partials_quant",
      {"launch_mma", "launch_fma"}),
+    ("mla_paged_decode.cu", "mla_paged_decode_partials",
+     {"launch_mma", "launch_fma"}),
+    ("mla_paged_decode.cu", "mla_paged_decode_partials_quant",
+     {"launch_mma", "launch_fma"}),
 ])
 def test_the_dtype_chooses_the_route_before_launch(source, entry, routes):
     text = _text(source)
@@ -161,12 +171,12 @@ def test_the_dtype_chooses_the_route_before_launch(source, entry, routes):
 
 
 def test_paged_kernels_still_include_flash_tile():
-    """The paged GQA source includes the tensor-core header beside the
-    shared tile, for its bf16 chunk route; the MLA source keeps the tile
-    alone."""
-    assert {"flash_tile.cuh", "mma.cuh"} <= _includes("paged_flash_decode.cu")
-    assert "flash_tile.cuh" in _includes("mla_paged_decode.cu")
-    assert "mma.cuh" not in _includes("mla_paged_decode.cu")
+    """Both paged sources include the tensor-core header beside the
+    shared tile (for the paged GQA kernel's bf16 chunk route and the MLA
+    kernel's bf16 route), and the row reader they share."""
+    for src in ("paged_flash_decode.cu", "mla_paged_decode.cu"):
+        assert {"flash_tile.cuh", "mma.cuh", "page_rows.cuh"} <= \
+            _includes(src), src
     for src in ("flash_attention.cu", "mpq_matmul.cu"):
         assert "mma.cuh" in _includes(src), src
 
@@ -235,6 +245,69 @@ def test_the_quantized_chunk_route_widens_raw_rows_in_shared_memory():
     assert len(re.findall(r"\bmma_bf16\(", kernel)) == 4
 
 
+def test_the_mla_route_is_chosen_by_dtype_alone():
+    """float32 takes the FMA kernel and bf16 the tensor-core kernel, on
+    any latent pool (one dispatch template on BITS, no condition on the
+    bits); the FMA kernel is no longer built for bf16."""
+    text = _text("mla_paged_decode.cu")
+    body = _body(text, "dispatch_dtype")
+    assert re.search(r"if \(dtype == 0\)\s*return launch_fma<float, BITS, "
+                     r"512, 64>", body)
+    assert re.search(r"if \(dtype == 1\)\s*return launch_mma<BITS, 512, "
+                     r"64>", body)
+    assert "BITS ==" not in body and not re.search(r"\btry\b", body)
+    assert "launch_fma<__nv_bfloat16" not in text
+    for entry, bits in (("mla_paged_decode_partials", (0,)),
+                        ("mla_paged_decode_partials_quant", (8, 4))):
+        for b in bits:
+            assert f"dispatch_dtype<{b}>(dtype" in _body(text, entry)
+
+
+def test_the_mla_route_reads_keys_and_values_from_one_tile():
+    """The latent row is key and value at once: the scores' C^T
+    (plain ``ldmatrix``) and the context's C (``ldmatrix.trans``) come
+    from the same shared tile, which 16-byte ``cp.async`` copies fill
+    through the page table; a quantized pool's raw rows and scales
+    (4-byte ``cp.async``) are widened into it in two passes (the raw rows
+    overlap the tile's tail), with the reference's op sequence."""
+    text = _text("mla_paged_decode.cu")
+    reached = _reach(text, "mla_partials_mma")
+    assert {"copy_rows", "widen_rows", "widen8", "lane_value", "cp_async4",
+            "cp_async16", "ldsm_x4", "ldsm_x4_t", "mma_bf16",
+            "pack_bf16"} <= reached, reached
+    assert "__fmul_rn" in _body(text, "widen8")
+    kernel = _body(text, "mla_partials_mma")
+    assert re.search(r"const bf16\* Ck = Cs \+", kernel)
+    assert re.search(r"const bf16\* Cv = Cs \+", kernel)
+    assert re.search(r"ldsm_x4\(kb, Ck \+", kernel)
+    assert re.search(r"ldsm_x4_t\(vb, Cv \+", kernel)
+    assert re.search(r"widen_rows<BITS, W, CS, MMA_NT>\(Cs, Craw, Ssc, 0, "
+                     r"L::SPLIT, tid\);\s*__syncthreads\(\);\s*"
+                     r"widen_rows<BITS, W, CS, MMA_NT>\(Cs, Craw, Ssc, "
+                     r"L::SPLIT, MMA_BK, tid\);", kernel)
+    # one kernel template on BITS for fp, int8 and int4 pools: scores
+    # (c_kv and k_rope summed apart) and context in one piece of source
+    assert re.search(r"template <int BITS, int R, int DR>\s*__global__ "
+                     r"void __launch_bounds__\(MMA_NT\)\s*mla_partials_mma",
+                     text)
+    assert len(re.findall(r"\bmma_bf16\(", kernel)) == 6
+    # the f32 FMA kernel is left as it was: no tensor-core instruction
+    assert not {"mma_bf16", "ldsm_x4", "cp_async16"} & \
+        _reach(text, "mla_partials_kernel")
+
+
+def test_the_mla_tile_is_declared_once_beside_the_wrapper():
+    """MLA decode's engine split is one tile of the bf16 route: the
+    wrapper's MLA_TILE_KEYS, which the model layer imports, is the
+    kernel's MMA_BK."""
+    text = _text("mla_paged_decode.cu")
+    tile = re.search(r"constexpr int MMA_BK = (\d+);", text)
+    assert tile and int(tile.group(1)) == pfd.MLA_TILE_KEYS
+    model = (PKG / "models" / "mla.py").read_text()
+    assert "MLA_TILE_KEYS" in model
+    assert not re.search(r"^[A-Z_]*TILE[A-Z_]* = \d+", model, re.M)
+
+
 def test_an_edited_header_rebuilds_every_library(tmp_path, monkeypatch):
     """``_build._lib_path`` hashes every ``*.cuh``: editing the new
     tensor-core header gives each source a new library name, so a stale
@@ -262,10 +335,19 @@ def test_no_port_file_names_a_library_kernel():
     assert not hits, hits
 
 
-@pytest.mark.parametrize("call", ["flash", "wo_matmul", "paged"])
+@pytest.mark.parametrize("call", ["flash", "wo_matmul", "paged", "mla"])
 def test_bf16_wrappers_have_no_fallback_off_the_cpu(call):
     """A bf16 tensor off the CPU reaches the kernel or raises."""
-    if call == "flash":
+    if call == "mla":
+        pool = torch.empty(4, 16, 576, dtype=torch.bfloat16, device="meta")
+        qc = torch.empty(1, 1, 16, 512, dtype=torch.bfloat16, device="meta")
+        qr = torch.empty(1, 1, 16, 64, dtype=torch.bfloat16, device="meta")
+        tbl = torch.zeros(1, 4, dtype=torch.int32, device="meta")
+        pos = torch.zeros(1, dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="no kernel"):
+            pfd.mla_paged_decode_partials(pool, qc, qr, tbl, pos, 512, 192,
+                                          pages_per_split=4)
+    elif call == "flash":
         q = torch.empty(1, 4, 2, 32, dtype=torch.bfloat16, device="meta")
         with pytest.raises(ValueError, match="no kernel"):
             fa.flash_attention(q, q, q)
