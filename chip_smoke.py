@@ -15,14 +15,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      256-token chunk; the bf16 flash forward (the tensor-core route) also
      at every HEAD_DIMS pair, at that chunk and at FLASH_EDGES (1, 63, 65
      and 188 rows, kv_valid short of the chunk, one sequence); the bf16
-     paged partials (decode rows on the CUDA cores, chunks of more than
-     16 Sq x G rows on the tensor cores) also at every HEAD_DIMS pair and
-     PAGED_EDGES case (3, 17, 65, 188 and 256 query positions, 1-3 pages
-     a split and the engine's, page 16 and 32) on a pool with a hole, a
-     mapped page past a slot's position and an inactive slot, every
-     skipped split and every row that sees no key exactly (-1e30, 0, 0),
-     each case within PAGED_EDGE_TOL_BF16, which a causal mask one key
-     off, planted in the plain version, must break;
+     paged partials (both routes on the tensor cores: decode rows, up to
+     16 Sq x G, on the one-tile route at the engine's split of one
+     64-key tile; chunks on the FA2 ring) also at every HEAD_DIMS pair
+     and PAGED_EDGES case (1, 2, 3, 17, 65, 188 and 256 query positions,
+     1, 2, 3, 4 and 8 pages a split and the engine's, page 16 and 32) on
+     a pool with a hole, a mapped page past a slot's position and an
+     inactive slot, every skipped split and every row that sees no key
+     exactly (-1e30, 0, 0), each case within PAGED_EDGE_TOL_BF16, which a
+     causal mask one key off (PAGED_SHIFT: one key more for a chunk,
+     fewer at decode), planted in the plain version, must break; the
+     decode route on fp, int8 and int4 pools timed at 1, 2, 4 and 8
+     pages a split in one Timer (``paged_sweep``, with the combine's
+     time), and the engine's split set beside the fastest;
      time kernel, plain version and (flash only) the library's
      ``scaled_dot_product_attention`` with a cold L2 (see ``Timer``),
      beside the least time the card could take;
@@ -33,8 +38,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
      count is set to 0 just before and read just after; each must be > 0.
      Every dispatch is logged with the launches it made: a fresh wave
      launches the flash kernel 36 times, a resumed wave (the paged
-     kernel's chunk route) and a decode step (its decode route) the
-     paged kernel 36 times, neither launching the other.  Two finished
+     kernel's chunk route) and a decode step (its decode route, one
+     64-key tile a split) the paged kernel 36 times, neither launching
+     the other.  Two finished
      requests' logits are held against a plain contiguous forward of the
      same token sequence (teacher forcing);
   4. run a 2-layer float32 version of the same arch through the engine
@@ -131,19 +137,20 @@ identities.  The quantized paged partials also run in
 bf16 at every PAGED_EDGES case (int8 and int4, dk 128, KV 2, page 16
 and 32) and on a fresh 256-row chunk (offset 0, as the engine sends one
 on a quantized pool), each within PAGED_EDGE_TOL_BF16, which the planted
-causal mask one key off must break.  A bf16 chunk (more than 16 Sq x G
-rows) takes the tensor-core route, which must equal, bit for bit, the
-fp kernel's chunk route on the same pool dequantized by
-``PageFormat.dequantize``; every chunk case records that comparison.  The
-engine's choices are timed in bf16.
+causal mask one key off (PAGED_SHIFT) must break.  Every bf16 case takes
+a tensor-core route (the decode route up to 16 Sq x G rows, the chunk
+route above), which must equal, bit for bit, the fp kernel's same route
+on the same pool dequantized by ``PageFormat.dequantize``; every bf16
+case records that comparison.  The engine's choices are timed in bf16.
 
 The second-to-last line is a JSON object listing the ported kernels; the
 last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 ``--kernels-only`` stops after the kernel checks (phases 1, 2, 2b, 2c
-and 5).  ``--mla-only`` runs the build, the MLA sweep and the MLA_EDGES
-cases alone, at explicit pages a split: it is how the parent tree's FMA
-errors behind MLA_EDGE_TOL_BF16 were read (a copy of this script in a
-checkout of that tree, whose engine split and ``kernel_checks`` differ).
+and 5).  ``--sweeps-only`` runs the build, the paged decode sweep, the
+MLA sweep and the MLA_EDGES cases alone, at explicit pages a split: it
+is how an earlier tree's readings behind the sweeps and
+MLA_EDGE_TOL_BF16 are taken (a copy of this script in a checkout of
+that tree, whose engine splits and ``kernel_checks`` differ).
 """
 from __future__ import annotations
 
@@ -169,8 +176,12 @@ PAGED_TOL_F32 = 1e-4
 # error the CUDA-core route read on them before the tensor-core chunk
 # route existed (2.66e-3 on an H100), so that a causal mask one key off
 # breaks it; each case plants that fault in the plain version and fails
-# unless the fault lands outside (PERF.md §6, PR 22)
+# unless the fault lands outside (PERF.md §6).  The fault is the
+# route's (PAGED_SHIFT): a chunk's rows each see one key MORE, a decode
+# case's rows one key FEWER.  One key more is blind at decode: its query
+# sits at kv_valid - 1, which masks the extra key, and reads exactly 0
 PAGED_EDGE_TOL_BF16 = 8e-3
+PAGED_SHIFT = {"chunk": 1, "decode": -1}
 # MLA partials, combined: the kernel rounds its weights to bf16 as the
 # plain version does, but from float32 exponents computed in another
 # order, so a weight may land one bf16 step away; outputs are weighted
@@ -344,20 +355,29 @@ WO_DESIGN = {"rows": "mma.sync m16n8k16 bf16, 4-slot cp.async ring, 128x128 "
              "cols": "mma.sync m16n8k16 bf16 on W^T x^T, 4-slot cp.async "
                      "ring, split-K"}
 # the paged GQA kernel's routes (`pick_route` in its .cu, chosen before
-# launch by dtype, bits and Sq * G rows): a bf16 chunk on any pool (fp,
-# int8 or int4) runs on tensor cores, decode rows and float32 on the CUDA
-# cores; a quantized pool's chunk route widens its raw rows to bf16 in
-# shared memory
+# launch by dtype, bits and Sq * G rows): bf16 on any pool (fp, int8 or
+# int4) runs on tensor cores, decode rows (<= 16) on the one-tile route
+# and chunks on the FA2 ring, float32 on the CUDA cores; a quantized
+# pool's bf16 routes widen its raw rows to bf16 in shared memory
 PAGED_DESIGN = {"chunk": "mma.sync m16n8k16 bf16, 2-slot cp.async K/V ring "
                          "through the page table (FA2, 4 warps x 16 query "
                          "rows)",
-                "decode": "FMA (CUDA cores), flash_tile.cuh, 16-row blocks",
+                "decode": "mma.sync m16n8k16 bf16, the <= 16 query rows as "
+                          "one m16 tile, one cp.async 64-key K/V tile "
+                          "through the page table (4 warps x 16 keys in S, "
+                          "x dv/4 columns in O), one tile a split",
                 "f32": "FMA (CUDA cores), flash_tile.cuh (f32 route)"}
 QPAGED_DESIGN = dict(PAGED_DESIGN,
                      chunk="mma.sync m16n8k16 bf16, 2-slot cp.async ring of "
                            "the raw int rows and their scales through the "
                            "page table, widened into one bf16 K/V slot "
-                           "(FA2, 4 warps x 16 query rows)")
+                           "(FA2, 4 warps x 16 query rows)",
+                     decode="mma.sync m16n8k16 bf16, the <= 16 query rows as "
+                            "one m16 tile, one cp.async 64-key tile of the "
+                            "raw int rows and their scales through the page "
+                            "table, widened into bf16 K/V tiles (4 warps x "
+                            "16 keys in S, x dv/4 columns in O), one tile a "
+                            "split")
 # the MLA kernels' routes (`dispatch_dtype` in their .cu, chosen before
 # launch by dtype alone, on fp, int8 and int4 latent pools alike)
 MLA_DESIGN = {"bf16": "mma.sync m16n8k16 bf16, one cp.async 64-key tile "
@@ -377,14 +397,19 @@ FLASH_EDGES = ((8, 1, None), (8, 63, None), (8, 65, None), (8, 188, None),
                (1, 188, 100))
 # paged edge cases, untimed, at every HEAD_DIMS pair (KV 2; KV = H = 16
 # at 192 / 128), on a pool with a hole mid-table, a mapped page past a
-# slot's position and an inactive slot: query rows (3 and 17 rows
-# straddle the 16-row switch between the routes at G 8 and G 1, 65 and
-# 188 leave a ragged last tile), pages a split (1-3 leave splits shorter
-# than a 64-key tile; None: the engine's choice) and page sizes, with P
-# pages of 2048 / ps rows a slot
-PAGED_EDGES_SQ = (3, 17, 65, 188, 256)
-PAGED_EDGES_C = (1, 2, 3, None)
+# slot's position and an inactive slot: query positions (1 and 2 are 8
+# and 16 decode rows at G 8, 3 the first chunk there; 17 rows straddle
+# the 16-row switch between the routes at G 1; 65 and 188 leave a ragged
+# last tile), pages a split (1-3 leave splits shorter than a 64-key
+# tile, 4 at page 16 and 2 at page 32 are one tile, 8 is several; None:
+# the engine's choice) and page sizes, with P pages of 2048 / ps rows a
+# slot
+PAGED_EDGES_SQ = (1, 2, 3, 17, 65, 188, 256)
+PAGED_EDGES_C = (1, 2, 3, 4, 8, None)
 PAGED_EDGES_PS = (16, 32)
+# pages a split the paged kernel's decode route is timed at, in one Timer
+# (qwen2.5-3b's decode: B 8, H 16, KV 2, dh 128, P 128, page 16)
+PAGED_SWEEP_C = (1, 2, 4, 8)
 # MLA decode edge cases, untimed, in bf16 on fp, int8 and int4 latent
 # pools (mla_case's pool: a hole, a page past its slot's position, an
 # inactive slot, last pages partly filled): P pages a slot, page sizes,
@@ -466,9 +491,18 @@ def flash_checks(torch, timer):
 def paged_route(torch, dtype, Sq, H, KV):
     """The paged GQA kernel's route for a call on any pool (the .cu's
     `pick_route`): a key of PAGED_DESIGN and QPAGED_DESIGN."""
+    from repro_torch.models.attention import DECODE_ROWS
     if dtype == torch.float32:
         return "f32"
-    return "chunk" if Sq * (H // KV) > 16 else "decode"
+    return "chunk" if Sq * (H // KV) > DECODE_ROWS else "decode"
+
+
+def paged_split(B, Sq, H, KV, P, ps, dv):
+    """The engine's pages a split for a GQA call
+    (``models/attention.py::page_split``): one 64-key tile at decode,
+    ``_pages_per_split`` for a chunk."""
+    from repro_torch.models.attention import page_split
+    return page_split(B, Sq, H, KV, P, ps, dv)
 
 
 def paged_case(torch, dtype, B, Sq, H, KV, dh, ps, P, seed, dv=None,
@@ -516,18 +550,18 @@ def check_paged(torch, timer, dtype, Sq, B=8, H=16, KV=2, dh=128, ps=16,
                 P=128, dv=None, c=None, odd=False, edge=False, timed=True):
     """The paged partials at q/k width ``dh`` and v width ``dv`` (default
     ``dh``; MLA's resumed chunk: 192 and 128 with KV = H); ``c`` pages a
-    split (default: the engine's choice); ``odd``: paged_case's hole,
-    page past a position and inactive slot; ``edge``: a PAGED_EDGES case,
-    held to PAGED_EDGE_TOL_BF16, which the plain version with every active
-    row seeing one key more must break.  Timed in bf16 only."""
+    split (default: the engine's choice, ``paged_split``); ``odd``:
+    paged_case's hole, page past a position and inactive slot; ``edge``: a
+    PAGED_EDGES case, held to PAGED_EDGE_TOL_BF16, which the plain version
+    with every active row seeing one key more (a chunk) or fewer
+    (decode), PAGED_SHIFT, must break.  Timed in bf16 only."""
     from repro_torch.kernels import paged_flash_decode as pfd
-    from repro_torch.models.attention import (_combine_page_partials,
-                                              _pages_per_split)
+    from repro_torch.models.attention import _combine_page_partials
     dv = dv or dh
     kp, vp, q, tbl, qpos, kvv, fill = paged_case(torch, dtype, B, Sq, H, KV,
                                                  dh, ps, P, seed=2 + Sq,
                                                  dv=dv, odd=odd)
-    c = c or _pages_per_split(B, Sq, H, P, dv)
+    c = c or paged_split(B, Sq, H, KV, P, ps, dv)
     got = pfd.paged_flash_decode_partials(kp, vp, q, tbl, qpos, kvv,
                                           pages_per_split=c)
     want = pfd.paged_flash_decode_partials_plain(kp, vp, q, tbl, qpos, kvv, c)
@@ -557,9 +591,11 @@ def check_paged(torch, timer, dtype, Sq, B=8, H=16, KV=2, dh=128, ps=16,
            "max_abs_err": err, "tol": tol,
            "skipped": int(skipped.sum().item())}
     if edge:
+        rec["planted_shift"] = PAGED_SHIFT[route]
         rec["planted_shift_err"] = planted_shift_err(
             torch, lambda qp: pfd.paged_flash_decode_partials_plain(
-                kp, vp, q, tbl, qp, kvv, c), qpos, out, tol, name)
+                kp, vp, q, tbl, qp, kvv, c), qpos, out, tol, name,
+            PAGED_SHIFT[route])
     del got, want, out
     if dtype != torch.bfloat16 or not timed:
         return rec
@@ -568,42 +604,38 @@ def check_paged(torch, timer, dtype, Sq, B=8, H=16, KV=2, dh=128, ps=16,
     rec["plain_ms"] = timer.ms(lambda: pfd.paged_flash_decode_partials_plain(
         kp, vp, q, tbl, qpos, kvv, c))
     rec["library_ms"] = None
-    # this run's live rows: every mapped row below kv_valid is read once
-    # per (slot, KV head); pairs are the unmasked (query, key) products
-    live_rows = int(sum(-(-int(f) // ps) * ps for f in fill))
-    pairs = int(sum(sum(min(int(p) + 1, int(f)) for p in qp)
-                    for qp, f in zip(qpos.tolist(), fill)))
-    el = q.element_size()
-    n_split = -(-P // c)
-    nbytes = (q.numel() * el + live_rows * KV * (dh + dv) * el
-              + B * P * 4 + B * Sq * 4 + B * 4
-              + B * Sq * H * n_split * (2 + dv) * 4)
-    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes,
-                                                2 * (dh + dv) * H * pairs)
+    rec["bound_ms"], rec["bound_by"], rec["live_rows"], \
+        rec["partials_bytes"] = paged_bound(
+            tbl.cpu().numpy(), qpos.cpu().numpy(), fill, ps, c, H, KV, dh,
+            dv, q.element_size())
     return rec
 
 
-def planted_shift_err(torch, plain, qpos, out, tol, name):
+def planted_shift_err(torch, plain, qpos, out, tol, name, shift):
     """A PAGED_EDGES case's planted fault: the combined output of
-    ``plain(qpos)`` with every active row seeing one key more, against
-    ``out``; it must land outside ``tol``."""
+    ``plain(qpos)`` with every active row seeing ``shift`` keys more (1)
+    or fewer (-1), against ``out``; it must land outside ``tol``."""
     from repro_torch.models.attention import _combine_page_partials
-    shifted = torch.where(qpos >= 0, qpos + 1, qpos)
+    shifted = torch.where(qpos >= 0, qpos + shift, qpos)
     err = (_combine_page_partials(*plain(shifted)) - out).abs().max().item()
     if not err > tol:
-        fail(f"{name}: a causal mask one key off reads {err}, inside the "
-             f"edge bound {tol}")
+        fail(f"{name}: a causal mask {shift:+d} key off reads {err}, inside "
+             f"the edge bound {tol}")
     return err
 
 
 def edge_summary(phase, edges):
-    """One line over PAGED_EDGES records: the cases and the largest error
-    of each route, the skipped rows, the planted fault's smallest error."""
+    """One line over PAGED_EDGES records: the cases, the largest error and
+    the planted fault's smallest error of each route, the skipped rows."""
+    def by(route, key, agg):
+        return agg((r[key] for r in edges.values() if r["route"] == route),
+                   default=None)
     return {"phase": phase, "cases": len(edges),
             "by_route": {route: {
                 "cases": sum(r["route"] == route for r in edges.values()),
-                "max_abs_err": max((r["max_abs_err"] for r in edges.values()
-                                    if r["route"] == route), default=None)}
+                "max_abs_err": by(route, "max_abs_err", max),
+                "planted_shift": PAGED_SHIFT[route],
+                "min_planted_shift_err": by(route, "planted_shift_err", min)}
                 for route in ("chunk", "decode")},
             "skipped_rows": sum(r["skipped"] for r in edges.values()),
             "min_planted_shift_err": min(r["planted_shift_err"]
@@ -627,6 +659,102 @@ def paged_edge_checks(torch, timer):
                                     odd=True, edge=True, timed=False)
         torch.cuda.empty_cache()
     return recs
+
+
+def paged_bound(tbl_np, qpos_np, fill, ps, c, H, KV, dh, dv, el,
+                bits=None):
+    """(bound ms, bound by, live rows, partials bytes) of a GQA paged call
+    on ``paged_case``'s pool: the pages the kernel reads (mapped, below
+    the fill, not after the slot's last query) at ``el`` bytes an element
+    (or ``bits`` a lane and 8 bytes of k and v scales a row), the queries,
+    table, positions and bounds, and every float32 partial written
+    (identities too); the operations are the live (query, key) pairs'."""
+    import numpy as np
+    B, P = tbl_np.shape
+    Sq = qpos_np.shape[1]
+    live_rows = ps * sum(1 for b in range(B) for j in range(P)
+                         if tbl_np[b, j] >= 0 and j * ps < fill[b]
+                         and j * ps <= qpos_np[b].max())
+    mapped = np.repeat(tbl_np >= 0, ps, axis=1)              # (B, P*ps)
+    kpos = np.arange(P * ps)
+    pairs = int(sum(((kpos[None, :] <= qpos_np[b][:, None])
+                     & (kpos[None, :] < fill[b]) & mapped[b][None, :]).sum()
+                    for b in range(B)))
+    row = KV * (dh + dv) * el if bits is None else \
+        KV * (dh + dv) * bits / 8 + 8
+    partials = B * Sq * H * -(-P // c) * (2 + dv) * 4
+    nbytes = (live_rows * row + B * Sq * H * dh * el + B * P * 4
+              + B * Sq * 4 + B * 4 + partials)
+    ms, by = bound_ms(nbytes, 2 * (dh + dv) * H * pairs)
+    return ms, by, live_rows, partials
+
+
+def paged_sweep(torch, timer, B=8, H=16, KV=2, dh=128, ps=16, P=128):
+    """The bf16 paged kernel's decode route on fp, int8 and int4 pools at
+    qwen2.5-3b's decode (one query a slot, quant_gqa_case's pool: a hole,
+    a page past a slot's filled rows and an inactive slot; the quantized
+    pools are that pool quantized on the card), timed at each
+    PAGED_SWEEP_C pages a split in one Timer, beside each split's bound
+    and the time of the combine that follows the kernel in the engine
+    (``_combine_page_partials`` on its partials); the kernel is checked
+    against its plain version at each.  Reads nothing of the engine's
+    split, so a copy of this script times a parent tree's kernel too."""
+    from repro_torch.core.pageformat import INT4, INT8
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.models.attention import _combine_page_partials
+    dt = torch.bfloat16
+    kf, vf, q, tbl, qpos, kvv, fill = paged_case(torch, dt, B, 1, H, KV, dh,
+                                                 ps, P, seed=41, odd=True)
+    tbl_np, qpos_np = tbl.cpu().numpy(), qpos.cpu().numpy()
+    recs = {}
+    for fmt in (None, INT8, INT4):
+        kp, vp, kw = kf, vf, {}
+        if fmt is not None:
+            kp, ks = fmt.quantize_rows(kf)
+            vp, vs = fmt.quantize_rows(vf)
+            kw = dict(k_scale=ks, v_scale=vs, bits=fmt.bits)
+        name = "fp" if fmt is None else fmt.name
+        for c in PAGED_SWEEP_C:
+            run = lambda: pfd.paged_flash_decode_partials(  # noqa: E731
+                kp, vp, q, tbl, qpos, kvv, pages_per_split=c, **kw)
+            got = run()
+            want = pfd.paged_flash_decode_partials_plain(
+                kp, vp, q, tbl, qpos, kvv, c, **kw)
+            err = (_combine_page_partials(*got)
+                   - _combine_page_partials(*want)).abs().max().item()
+            if not err <= PAGED_TOL_BF16:
+                fail(f"paged sweep {name} c={c}: max |kernel - plain| {err} "
+                     f"> {PAGED_TOL_BF16}")
+            del want
+            b_ms, b_by, live, partials = paged_bound(
+                tbl_np, qpos_np, fill, ps, c, H, KV, dh, dh, 2,
+                None if fmt is None else fmt.bits)
+            recs[f"{name}_c{c}"] = {
+                "pool": name, "pages_per_split": c, "kernel_ms":
+                timer.ms(run), "bound_ms": b_ms, "bound_by": b_by,
+                "combine_ms": timer.ms(
+                    lambda: _combine_page_partials(*got)),
+                "partials_bytes": partials, "live_rows": live,
+                "max_abs_err": err}
+            del got
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "paged_sweep", "shapes": {
+        "B": B, "Sq": 1, "H": H, "KV": KV, "dh": dh, "page": ps, "P": P},
+        "cases": recs}), flush=True)
+    return recs
+
+
+def sweep_verdict(recs, engine_c):
+    """Per pool of a paged sweep: the engine's split, the fastest split,
+    and the engine's time over the fastest (the split is kept if it is
+    within 10%; PERF.md says why otherwise)."""
+    out = {}
+    for pool in ("fp", "int8", "int4"):
+        ms = {c: recs[f"{pool}_c{c}"]["kernel_ms"] for c in PAGED_SWEEP_C}
+        best = min(ms, key=ms.get)
+        out[pool] = {"engine_c": engine_c, "fastest_c": best,
+                     "engine_over_fastest": ms[engine_c] / ms[best]}
+    return out
 
 
 def mla_case(torch, dtype, B, H, r, dr, ps, P, seed, Sq=1):
@@ -930,24 +1058,24 @@ def check_paged_quant(torch, timer, dtype, fmt, Sq, c=None, timed=False,
                       ps=16, edge=False, fresh=False):
     """The quantized GQA kernel at qwen2.5-3b's widths, 2048 / ps pages a
     slot, on quant_gqa_case's pool; ``c`` pages a split (default: the
-    engine's choice).  Each case is held against the plain version and
-    its skipped splits and rows that see no key to the exact identities;
-    a chunk-route record says whether it equals, bit for bit, the fp
-    kernel on the same pool dequantized to ``dtype`` by
-    ``PageFormat.dequantize``, which quant_kernel_checks requires.
-    ``edge``: held to PAGED_EDGE_TOL_BF16, which the plain version with
-    every active row seeing one key more must break (a PAGED_EDGES case,
-    or the fresh chunk).  ``fresh``: quant_gqa_case's fresh chunk."""
-    import numpy as np
+    engine's choice, ``paged_split``).  Each case is held against the
+    plain version and its skipped splits and rows that see no key to the
+    exact identities; a bf16 record (chunk or decode route) says whether
+    it equals, bit for bit, the fp kernel's same route on the same pool
+    dequantized to ``dtype`` by ``PageFormat.dequantize``, which
+    quant_kernel_checks requires.  ``edge``: held to PAGED_EDGE_TOL_BF16,
+    which the plain version with every active row seeing one key more (a
+    chunk) or fewer (decode), PAGED_SHIFT, must break (a PAGED_EDGES
+    case, or the fresh chunk).  ``fresh``: quant_gqa_case's fresh
+    chunk."""
     from repro_torch.kernels import paged_flash_decode as pfd
-    from repro_torch.models.attention import (_combine_page_partials,
-                                              _pages_per_split)
+    from repro_torch.models.attention import _combine_page_partials
     B, H, KV, dh, P = 8, 16, 2, 128, 2048 // ps
     kq, vq, ks, vs, q, tbl, qpos, kvv, tbl_np, qpos_np, fill = \
         quant_gqa_case(torch, dtype, fmt, Sq, ps=ps, P=P, seed=40 + Sq,
                        fresh=fresh)
     if c is None:
-        c = _pages_per_split(B, Sq, H, P, dh)
+        c = paged_split(B, Sq, H, KV, P, ps, dh)
     kw = dict(k_scale=ks, v_scale=vs, bits=fmt.bits)
     run = lambda: pfd.paged_flash_decode_partials(  # noqa: E731
         kq, vq, q, tbl, qpos, kvv, pages_per_split=c, **kw)
@@ -956,7 +1084,7 @@ def check_paged_quant(torch, timer, dtype, fmt, Sq, c=None, timed=False,
     got, want = run(), plain()
     route = paged_route(torch, dtype, Sq, H, KV)
     fp = None
-    if route == "chunk":
+    if route != "f32":
         fp = pfd.paged_flash_decode_partials(
             fmt.dequantize(kq, ks, dtype), fmt.dequantize(vq, vs, dtype), q,
             tbl, qpos, kvv, pages_per_split=c)
@@ -988,32 +1116,21 @@ def check_paged_quant(torch, timer, dtype, fmt, Sq, c=None, timed=False,
         rec["fp_route_bitwise"] = bool(all(torch.equal(a, b)
                                            for a, b in zip(got, fp)))
     if edge:
+        rec["planted_shift"] = PAGED_SHIFT[route]
         rec["planted_shift_err"] = planted_shift_err(
             torch, lambda qp: pfd.paged_flash_decode_partials_plain(
-                kq, vq, q, tbl, qp, kvv, c, **kw), qpos, out, tol, name)
+                kq, vq, q, tbl, qp, kvv, c, **kw), qpos, out, tol, name,
+            PAGED_SHIFT[route])
     del got, want, fp, out
     if not timed:
         return rec
     rec["kernel_ms"] = timer.ms(run)
     rec["plain_ms"] = timer.ms(plain)
     rec["library_ms"] = None
-    # the pages the kernel reads: mapped, below the fill, not after the
-    # slot's last query; pairs are the live (query, key) products
-    live_pages = [(b, j) for b in range(B) for j in range(P)
-                  if tbl_np[b, j] >= 0 and j * ps < fill[b]
-                  and j * ps <= qpos_np[b].max()]
-    live_rows = len(live_pages) * ps
-    mapped = np.repeat(tbl_np >= 0, ps, axis=1)              # (B, P*ps)
-    kpos = np.arange(P * ps)
-    pairs = int(sum(((kpos[None, :] <= qpos_np[b][:, None])
-                     & (kpos[None, :] < fill[b]) & mapped[b][None, :]).sum()
-                    for b in range(B)))
-    n_split = -(-P // c)
-    nbytes = (live_rows * KV * 2 * dh * fmt.bits / 8 + live_rows * 2 * 4
-              + q.numel() * q.element_size() + B * P * 4 + B * Sq * 4 + B * 4
-              + B * Sq * H * n_split * (2 + dh) * 4)
-    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 4 * dh * H * pairs)
-    rec["live_rows"] = live_rows
+    rec["bound_ms"], rec["bound_by"], rec["live_rows"], \
+        rec["partials_bytes"] = paged_bound(
+            tbl_np, qpos_np, fill, ps, c, H, KV, dh, dh, q.element_size(),
+            fmt.bits)
     return rec
 
 
@@ -1078,22 +1195,25 @@ def check_mla_quant(torch, timer, dtype, fmt, P=128, ps=16, c=None,
 
 def quant_kernel_checks(torch, timer):
     """Phase 2c: both quantized kernels at int8 and int4, bf16 and
-    float32, one page a split and two and three (the GQA kernel also at
-    the engine's split of a resumed chunk; the MLA kernel also at page
-    32); then the GQA kernel in bf16 on a fresh chunk at the engine's
-    split and at every PAGED_EDGES case, each held to PAGED_EDGE_TOL_BF16
-    with the planted fault outside.  The engine's choices are timed
-    in bf16.  Each GQA case on the chunk route must equal the fp chunk
-    route on its pool dequantized, bit for bit (the quantized route adds
-    no arithmetic but the dequantizing): held once every record is
-    printed, so that a failing run shows each case's comparison."""
+    float32, the engine's split and one page a split and two and three
+    (the GQA kernel at decode and on a resumed chunk; the MLA kernel also
+    at page 32); then the GQA kernel in bf16 on a fresh chunk at the
+    engine's split and at every PAGED_EDGES case, each held to
+    PAGED_EDGE_TOL_BF16 with the planted fault outside.  The engine's
+    choices are timed in bf16.  Each bf16 GQA case, on the chunk or the
+    decode route, must equal the fp kernel's same route on its pool
+    dequantized, bit for bit (the quantized routes add no arithmetic but
+    the dequantizing): held once every record is printed, so that a
+    failing run shows each case's comparison."""
     from repro_torch.core.pageformat import INT4, INT8
     recs, edges = {}, {}
     for fmt in (INT8, INT4):
         for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             for sq in (1, 256):
-                # c None: the engine's split (1 at decode, 32 at Sq 256)
-                for c in ((None, 2, 3) if sq == 1 else (None, 1, 2, 3)):
+                # c None: the engine's split (4 at decode, one 64-key
+                # tile; 32 at Sq 256); c 1: the reference's per-page
+                # partials (the engine's decode split before the tile)
+                for c in (None, 1, 2, 3):
                     recs[f"gqa_{fmt.name}_sq{sq}_c{c or 'eng'}_{tag}"] = \
                         check_paged_quant(torch, timer, dt, fmt, sq, c,
                                           timed=c is None and tag == "bf16")
@@ -1117,13 +1237,15 @@ def quant_kernel_checks(torch, timer):
         torch.cuda.empty_cache()
     for rec in list(recs.values()) + list(edges.values()):
         print(json.dumps(dict(phase="kernel_quant", **rec)), flush=True)
-    chunk = {k: r for k, r in list(recs.items()) + list(edges.items())
-             if r.get("route") == "chunk"}
-    print(json.dumps(dict(edge_summary("quant_paged_edges", edges),
-                          chunk_fp_route_bitwise=all(
-                              r["fp_route_bitwise"]
-                              for r in chunk.values()))), flush=True)
-    apart = [k for k, r in chunk.items() if not r["fp_route_bitwise"]]
+    tc = {k: r for k, r in list(recs.items()) + list(edges.items())
+          if k.startswith("gqa_") and r["route"] in ("chunk", "decode")}
+    print(json.dumps(dict(edge_summary("quant_paged_edges", edges), **{
+        f"{route}_fp_route_bitwise": {
+            "cases": sum(r["route"] == route for r in tc.values()),
+            "all": all(r["fp_route_bitwise"] for r in tc.values()
+                       if r["route"] == route)}
+        for route in ("chunk", "decode")})), flush=True)
+    apart = [k for k, r in tc.items() if not r["fp_route_bitwise"]]
     # the MLA kernel's bf16 route on a quantized pool, likewise
     apart += [k for k, r in recs.items() if k.startswith("mla_")
               and r["route"] == "bf16" and not r["fp_route_bitwise"]]
@@ -1547,8 +1669,9 @@ def serve(torch, card, cfg, params, tag):
     return launches, per_decode, by_kind
 
 
-def serve_f32(torch, quant=None):
-    """Phases 4 and 7: a 2-layer float32 qwen2.5-3b through the engine;
+def serve_f32(torch, quant=None, seed=3):
+    """Phases 4 and 7: a 2-layer float32 qwen2.5-3b, its weights drawn
+    from ``seed``, through the engine;
     its greedy tokens must equal the plain forward's.  At an integer
     format the teacher-forced logits are held as in phase 6 (bound
     SERVE_INT_NOISE_FACTOR x the kernel-free floor, planted faults
@@ -1563,7 +1686,7 @@ def serve_f32(torch, quant=None):
     from repro_torch.serve import Request, ServeConfig, ServingEngine
     cfg = get_config("qwen2.5-3b").with_(
         n_layers=2, pattern=(("scan", "attn_mlp", 2),), dtype=torch.float32)
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     params = init_params(cfg, gen, device="cuda")
     if quant is not None:
         cfg = cfg.with_(quant=parse_quant(quant))
@@ -2090,14 +2213,19 @@ def kernel_entry(name, source, replaces, launches, rec, design=None):
 def kernel_checks(torch, timer):
     """Phases 2 and 2b: the attention kernels against their plain
     versions.  Returns (qwen2.5-3b records, MLA path records, bf16 flash
-    records at every head pair)."""
+    records at every head pair, the paged decode route's sweep)."""
     flash = flash_checks(torch, timer)
+    # the paged kernel at the engine's split (decode: one 64-key tile),
+    # and float32 decode also at one page a split (the engine's decode
+    # split before the tile, so the FMA kernel's record compares with an
+    # earlier tree's value for value)
     recs = [flash["dk128_dv128"],
             check_flash(torch, timer, torch.float32),
             check_paged(torch, timer, torch.bfloat16, Sq=1),
             check_paged(torch, timer, torch.bfloat16, Sq=256),
             check_paged(torch, timer, torch.float32, Sq=1),
-            check_paged(torch, timer, torch.float32, Sq=256)]
+            check_paged(torch, timer, torch.float32, Sq=256),
+            check_paged(torch, timer, torch.float32, Sq=1, c=1)]
     # deepseek-v2-lite's MLA path: the fresh chunk's naive form (dk 192,
     # dv 128, KV = H = 16), the resumed chunk's expanded window viewed as
     # a pool of B * P pages, and the compressed-space decode partials
@@ -2131,9 +2259,13 @@ def kernel_checks(torch, timer):
     for rec in recs + list(mla.values()) + more + list(edges.values()):
         print(json.dumps(dict(phase="kernel", **rec)), flush=True)
     print(json.dumps(edge_summary("paged_edges", edges)), flush=True)
+    sweep = paged_sweep(torch, timer)
+    verdict = sweep_verdict(sweep, paged_split(8, 1, 16, 2, 128, 16, 128))
+    print(json.dumps({"phase": "paged_split_verdict", "pools": verdict}),
+          flush=True)
     mla["sweep"] = mla_sweep(torch, timer)
     mla_edge_checks(torch)
-    return recs, mla, flash
+    return recs, mla, flash, sweep
 
 
 def main() -> None:
@@ -2157,11 +2289,12 @@ def main() -> None:
                       "ptxas": ptxas}), flush=True)
 
     timer = Timer(torch)
-    if "--mla-only" in sys.argv[1:]:
+    if "--sweeps-only" in sys.argv[1:]:
+        paged_sweep(torch, timer)
         mla_sweep(torch, timer)
         mla_edge_checks(torch)
         return
-    recs, mla_recs, flash_recs = kernel_checks(torch, timer)
+    recs, mla_recs, flash_recs, paged_sw = kernel_checks(torch, timer)
     q_recs = quant_kernel_checks(torch, timer)
     t0 = time.perf_counter()
     mm_recs = [check_matmul(torch, timer, *case, seed=i)
@@ -2293,6 +2426,10 @@ def main() -> None:
         return {str(c): mla_recs["sweep"][f"{pool}_c{c}"]["kernel_ms"]
                 for c in MLA_SWEEP_C}
 
+    def paged_sweep_ms(pool):
+        return {str(c): paged_sw[f"{pool}_c{c}"]["kernel_ms"]
+                for c in PAGED_SWEEP_C}
+
     def pair(rec):
         return {k: rec[k] for k in (
             "max_abs_err", "kernel_ms", "plain_ms", "library_ms",
@@ -2308,13 +2445,17 @@ def main() -> None:
                            library_ratio=mla_recs["flash"]["library_ratio"]),
              dk32=pair(flash_recs["dk32_dv32"]),
              dk64=pair(flash_recs["dk64_dv64"])),
-        # the decode route's numbers, with the chunk route's (a resumed
-        # 256-row chunk) and each route's launches in phase 3 beside them
+        # the decode route's numbers at the engine's split (one 64-key
+        # tile), with its times at each PAGED_SWEEP_C split, the chunk
+        # route's (a resumed 256-row chunk) and each route's launches in
+        # phase 3 beside them
         dict(kernel_entry("paged_flash_decode_partials",
                           "paged_flash_decode.cu",
                           "src/repro/kernels/paged_flash_decode.py:129",
                           launches["paged_flash_decode_partials"], recs[2],
                           {r: PAGED_DESIGN[r] for r in ("decode", "chunk")}),
+             pages_per_split=recs[2]["shapes"]["pages_per_split"],
+             ms_by_split=paged_sweep_ms("fp"),
              launches_by_route={
                  "decode": by_kind["decode"]["paged_flash_decode_partials"],
                  "chunk": by_kind["resumed"]["paged_flash_decode_partials"]},
@@ -2332,7 +2473,8 @@ def main() -> None:
              ms_by_split=sweep_ms("fp")),
         packed_entry("wo_matmul", "src/repro/kernels/mpq_matmul.py:56"),
         packed_entry("mpq_matmul", "src/repro/kernels/mpq_matmul.py:32"),
-        # the quantized kernels: int8 at decode, with int4 and the
+        # the quantized kernels: int8 at decode (the engine's split, with
+        # its times at each PAGED_SWEEP_C split), with int4 and the
         # resumed and fresh 256-row chunks (GQA) beside it, and the GQA
         # kernel's launches in phase 10 by route (a fresh or resumed wave
         # takes the chunk route, a decode step the decode route)
@@ -2342,11 +2484,15 @@ def main() -> None:
                           kv_launches["paged_flash_decode_partials_quant"],
                           q_recs["gqa_int8_sq1_ceng_bf16"],
                           {r: QPAGED_DESIGN[r] for r in ("decode", "chunk")}),
+             pages_per_split=q_recs["gqa_int8_sq1_ceng_bf16"]["shapes"][
+                 "pages_per_split"],
+             ms_by_split=paged_sweep_ms("int8"),
              launches_by_route={
                  "decode": gqa_kinds["decode"],
                  "chunk": gqa_kinds["fresh"] + gqa_kinds["resumed"]},
              launches_by_dispatch=gqa_kinds,
-             int4=numbers(q_recs["gqa_int4_sq1_ceng_bf16"]),
+             int4=dict(numbers(q_recs["gqa_int4_sq1_ceng_bf16"]),
+                       ms_by_split=paged_sweep_ms("int4")),
              resumed_int8=numbers(q_recs["gqa_int8_sq256_ceng_bf16"]),
              resumed_int4=numbers(q_recs["gqa_int4_sq256_ceng_bf16"]),
              fresh_int8=numbers(q_recs["gqa_int8_fresh_sq256_ceng_bf16"]),

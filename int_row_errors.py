@@ -16,6 +16,16 @@ mean square's ratio is given as the ratio of the RMS values.
 
     python3 int_row_errors.py --out int_rows.json
     python3 int_row_errors.py --summary int_rows.json
+
+``--f32-seeds 3-10`` runs phase 7's check alone (``serve_f32`` at w8a8)
+at each weight seed of the range, with ``chip_smoke.py``'s own
+``int_logit_check``, and records each failure instead of stopping: one
+JSON line a seed, after ``serve_f32``'s own line with every request's
+record.  Where the kernel-free floor moves no activation integer the
+bound is 1e-5, so the verdict can turn on one rounding; this reads how
+often it does.
+
+    python3 int_row_errors.py --f32-seeds 3-10
 """
 from __future__ import annotations
 
@@ -87,6 +97,26 @@ def collect(out: Path) -> None:
     print(f"wrote {len(recs)} records to {out}", flush=True)
 
 
+def f32_seeds(seeds: range) -> None:
+    import torch
+    cs = _smoke()
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is False: this needs a card")
+    sys.path.insert(0, str(cs.SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _build
+    _build.build_all()
+    print(cs.card_line(), flush=True)
+    for seed in seeds:
+        failures = []
+        cs.fail = failures.append
+        cs.serve_f32(torch, "w8a8", seed=seed)
+        print(json.dumps({"phase": "f32_seed", "seed": seed,
+                          "passed": not failures, "failures": failures}),
+              flush=True)
+
+
 def stats(e: list[float]) -> dict:
     """Candidate statistics of one request's row errors."""
     s = sorted(e)
@@ -128,9 +158,14 @@ def main() -> None:
     ap.add_argument("--out", type=Path, default=Path("int_rows.json"))
     ap.add_argument("--summary", type=Path, default=None,
                     help="print the statistics of a file this wrote")
+    ap.add_argument("--f32-seeds", default=None, metavar="A-B",
+                    help="phase 7's check at weight seeds A to B")
     args = ap.parse_args()
     if args.summary is not None:
         summary(args.summary)
+    elif args.f32_seeds is not None:
+        lo, hi = (int(v) for v in args.f32_seeds.split("-"))
+        f32_seeds(range(lo, hi + 1))
     else:
         collect(args.out)
 

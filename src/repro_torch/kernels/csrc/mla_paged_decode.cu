@@ -33,7 +33,7 @@
 // 16, 2 at page 32, more only where the partials would pass the engine's
 // memory budget), not one page: per-page partials of 16 heads x 512
 // float32 (32 KB a page at page 16) would outweigh the 18 KB bf16 page
-// they come from.  MMA_BK is the wrapper's MLA_TILE_KEYS.
+// they come from.  MMA_BK is the wrapper's TILE_KEYS.
 //
 // What bounds it on an H100: a decode step reads each live latent page
 // once, (R + DR) elements a row, and does ~2 * H * (2R + DR) operations a

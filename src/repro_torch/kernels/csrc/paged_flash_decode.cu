@@ -33,15 +33,20 @@
 // operations per cached K/V row of dk + dv elements, far below the card's ~295
 // operations per byte, so it is memory-bound: the least time is the
 // mapped, live pages' bytes over 3.35 TB/s (a quantized pool moves 2x /
-// 4x fewer of them than bf16, plus 8 bytes of scales a row).  A resumed
-// chunk (Sq = a whole prefill chunk, 256 rows) does ~Sq * G times more
-// operations on the same bytes: ~17 GFLOP at qwen2.5-3b's serving shape
-// against ~86 MB, of which the float32 partials are most.  The byte
-// bound still wins against the tensor cores' rate, but on the CUDA cores
-// (67 TFLOP/s in float32) the products alone would take ~10x the bound.
-// The partials grow as Sq * P, so
-// the caller raises c there so that S stays small, and each block walks
-// its c pages in order.
+// 4x fewer of them than bf16, plus 8 bytes of scales a row) plus the
+// float32 partials written.  The engine's decode takes one 64-key tile a
+// split (`models/attention.py::page_split`: 4 pages at page 16, 2 at
+// page 32, more only where the partials would pass the engine's memory
+// budget), not one page: per-page partials of G x dv float32 a KV head
+// (8.5 MB a layer at qwen2.5-3b's B 8, P 128) would weigh as much as the
+// bf16 pages they come from.  A resumed chunk (Sq = a whole prefill
+// chunk, 256 rows) does ~Sq * G times more operations on the same bytes:
+// ~17 GFLOP at qwen2.5-3b's serving shape against ~86 MB, of which the
+// float32 partials are most.  The byte bound still wins against the
+// tensor cores' rate, but on the CUDA cores (67 TFLOP/s in float32) the
+// products alone would take ~10x the bound.  The partials grow as Sq * P,
+// so the caller raises c there so that S stays small, and each block
+// walks its c pages in order.
 //
 // Every route reads each live page once per (slot, KV head), keeps the
 // gathered window out of device memory, and launches one block per (row
@@ -51,6 +56,34 @@
 // Each block reads its own table entries.  The route is chosen before
 // launch by (dtype, bits, rows); none falls back on another:
 //
+// * bf16 with Sq * G <= 16 rows (every GQA decode step on fp, int8 and
+//   int4 pools; MHA and MLA's expanded window up to 16 query
+//   positions), `paged_decode_mma`: the rows are one m16 tile of
+//   `mma.sync` m16n8k16 (bf16 in, float32 sums), the shape of the MLA
+//   kernel's bf16 route (`mla_paged_decode.cu`).  One block of four
+//   warps per (split, slot, KV head).  A key tile is 64 rows, its K and
+//   V slices copied by 16-byte `cp.async` after 64 threads look up each
+//   key's pool row (the chunk route's lookup below), so dead rows are
+//   zero-filled and never read, and one `__syncthreads_or` skips a tile
+//   with no live key.  Q is copied with the first live tile and its
+//   fragments ((q * scale) rounded to bf16) stay in registers.  Scores:
+//   each warp takes 16 keys over dk (K^T by plain `ldmatrix`); the mask,
+//   then the row max and sum exchanged across the warps through shared
+//   memory; the weights, rounded to bf16, go to shared memory, and the
+//   context reads them as A fragments and V by `ldmatrix.trans`, each
+//   warp owning dv / 4 output columns (dv / 2 at dv 32: two warps).  A
+//   split longer than one tile keeps the online softmax across tiles.
+//   At the engine's split a block is one tile, so the tile is
+//   single-buffered and copies overlap products across the blocks an SM
+//   holds (41 KB of shared memory at 128 / 128, 57 KB at int8, 49 KB at
+//   int4, 51 KB at 192 / 128): B 8 x KV 2 x 32 splits = 512 blocks, one
+//   wave.  The G = 8 rows of qwen2.5-3b's decode fill half the m16 tile;
+//   decode is memory-bound, so the padding costs products, not bytes.
+//   On a quantized pool the raw rows and each key's k and v scales (4-byte
+//   `cp.async`, 0 for a dead key) land first and one shared-memory pass
+//   widens them into the bf16 tiles, as the chunk route's, so that on
+//   the pool dequantized to bf16 the two decode routes give the same
+//   bits.
 // * bf16 with Sq * G > 16 rows (resumed and MLA chunks on fp pools;
 //   fresh and resumed chunks on int8 and int4 pools),
 //   `paged_partials_mma`: FA2 on `mma.sync` m16n8k16 (bf16 in, float32
@@ -86,11 +119,18 @@
 //   on the same pool dequantized to bf16 the two routes give the same
 //   bits.  Shared memory 67 KB at int8 (34 KB of bf16 slots, 33 KB of
 //   ring), 51 KB at int4.
-// * everything else (decode rows, float32), `paged_partials_kernel`: the
-//   CUDA-core FMA tile of `flash_tile.cuh`, 16-row blocks for decode and
-//   64-row blocks for float32 chunks.  Each page is staged in shared
-//   memory as float32 (dequantized first from a quantized pool), 16 rows
-//   at a time.  Float32 on tensor cores would be TF32, another function.
+// * float32, `paged_partials_kernel`: the CUDA-core FMA tile of
+//   `flash_tile.cuh`, 16-row blocks for decode rows and 64-row blocks
+//   for chunks.  Each page is staged in shared memory as float32
+//   (dequantized first from a quantized pool), 16 rows at a time.
+//   Float32 on tensor cores would be TF32, another function.  Float32
+//   decode is no serving path on the card; it runs at the engine's
+//   one-tile split too, where its blocks walk four pages each.  A decode
+//   block computes each page's partials from the identities, as the
+//   reference's per-page bodies do, and merges them in page order with
+//   the combine's arithmetic: at one page a split its results are the
+//   per-page ones bit for bit, and at more they track them.  A chunk
+//   block walks its split's pages with one online softmax.
 #include "mma.cuh"
 #include "page_rows.cuh"
 
@@ -149,10 +189,24 @@ paged_partials_kernel(const T* __restrict__ q,
   const int my_qpos = row_valid ? qpos[b * Sq + qi] : -1;
   const int kvs = kv_valid[b];
 
+  // A chunk block (64 rows) walks the split's pages with one online
+  // softmax.  A decode block (16 rows) computes each page's (m, l, acc)
+  // from the identities and merges them in page order as the caller's
+  // combine merges splits.
+  constexpr bool PER_PAGE = BQ == 16;
   const int j0 = split * pages_per_split;
   const int j1 = min(j0 + pages_per_split, P);
+  float ms = ATTN_NEG_INF, ls = 0.f, accs[Tile::ND];
+#pragma unroll
+  for (int i = 0; i < Tile::ND; ++i) accs[i] = 0.f;
   for (int j = j0; j < j1; ++j) {
     const int page = tbl[b * P + j];
+    if constexpr (PER_PAGE) {
+      tile.m = ATTN_NEG_INF;
+      tile.l = 0.f;
+#pragma unroll
+      for (int i = 0; i < Tile::ND; ++i) tile.acc[i] = 0.f;
+    }
     for (int sub = 0; sub < ps; sub += BK) {
       const int kbase = j * ps + sub;
       // block-uniform skip: unmapped, causally future or unfilled rows
@@ -174,17 +228,34 @@ paged_partials_kernel(const T* __restrict__ q,
       __syncthreads();
       tile.step(kbase, BK, my_qpos, kvs, row_valid);
     }
+    if constexpr (PER_PAGE) {
+      // a page that saw nothing (m = -1e30) adds exact zeros; merged into
+      // the identities, a page's partials come out unchanged
+      const float mn = fmaxf(ms, tile.m);
+      const float cs = expf(ms - mn), cp = expf(tile.m - mn);
+      ls = ls * cs + tile.l * cp;
+#pragma unroll
+      for (int i = 0; i < Tile::ND; ++i)
+        accs[i] = accs[i] * cs + tile.acc[i] * cp;
+      ms = mn;
+    }
+  }
+  if constexpr (!PER_PAGE) {
+    ms = tile.m;
+    ls = tile.l;
+#pragma unroll
+    for (int i = 0; i < Tile::ND; ++i) accs[i] = tile.acc[i];
   }
   if (row_valid) {
     const size_t o = (((size_t)b * Sq + qi) * KV + kvh) * G + R % G;
     const size_t os = o * n_splits + split;
     if (tile.qq == 0) {
-      m_out[os] = tile.m;
-      l_out[os] = tile.l;
+      m_out[os] = ms;
+      l_out[os] = ls;
     }
     float* dst = acc_out + os * DV + tile.qq;
 #pragma unroll
-    for (int i = 0; i < Tile::ND; ++i) dst[4 * i] = tile.acc[i];
+    for (int i = 0; i < Tile::ND; ++i) dst[4 * i] = accs[i];
   }
 }
 
@@ -542,17 +613,325 @@ int launch_mma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// The route, by (dtype, bits, rows), before launch: decode rows (Sq * G,
-// which rarely fill a 64-row tile) on 16-row FMA blocks; a bf16 chunk
-// on any pool (fp, int8 or int4) on the tensor cores; a float32 chunk on
-// 64-row FMA blocks.
+// ---------------------------------------------------------------------------
+// bf16 decode route: the <= 16 query rows of a (slot, KV head) as one m16
+// tile against one cp.async key tile at a time, read through the page
+// table; on a quantized pool the raw rows are widened to bf16 in shared
+// memory.
+// ---------------------------------------------------------------------------
+constexpr int DEC_BQ = MMA_MIN_ROWS - 1;   // query rows a block: one m16 tile
+
+// Shared memory, in bytes from the base: the bf16 K and V tiles (MMA_BK
+// rows each, padded by 8 a row), Q (DEC_BQ rows as K's), the weights P
+// (DEC_BQ x MMA_BK bf16, padded); a quantized pool's raw K and V rows
+// (DK * BITS / 8 and DV * BITS / 8 bytes a row) and the keys' k and v
+// scales after them.
+template <int BITS, int DK, int DV>
+struct DecodeTile {
+  static_assert(DEC_BQ == 16, "one m16 tile");
+  static constexpr int KS = DK + 8;     // padded row strides (bf16)
+  static constexpr int VS = DV + 8;
+  static constexpr int PS = MMA_BK + 8;
+  static constexpr int RK = DK * BITS / 8;     // raw bytes a row
+  static constexpr int RV = DV * BITS / 8;
+  // warps of the context product, OW output columns each (two n8 tiles
+  // at least, one ldmatrix.x4.trans): four, or DV / 16 at DV 32
+  static constexpr int CW = DV / 16 < 4 ? DV / 16 : 4;
+  static constexpr int OW = DV / CW;
+  static constexpr int V = 2 * MMA_BK * KS;
+  static constexpr int Q = V + 2 * MMA_BK * VS;
+  static constexpr int P = Q + 2 * DEC_BQ * KS;
+  static constexpr int RAW = P + 2 * DEC_BQ * PS;
+  static constexpr int SC = RAW + MMA_BK * (RK + RV);
+  static constexpr int BYTES = SC + (BITS ? 2 * MMA_BK * 4 : 0);
+  static_assert(RAW % 16 == 0 && SC % 16 == 0, "16-byte regions");
+};
+
+// BITS 0: an fp pool of bf16; 8 / 4: a quantized pool with row scales.
+template <int BITS, int DK, int DV>
+__global__ void __launch_bounds__(MMA_NT)
+paged_decode_mma(const bf16* __restrict__ q,
+                 const stored_t<bf16, BITS>* __restrict__ kpool,
+                 const stored_t<bf16, BITS>* __restrict__ vpool,
+                 const float* __restrict__ kscale,
+                 const float* __restrict__ vscale,
+                 const int* __restrict__ tbl, const int* __restrict__ qpos,
+                 const int* __restrict__ kv_valid, float* __restrict__ m_out,
+                 float* __restrict__ l_out, float* __restrict__ acc_out,
+                 int Sq, int H, int KV, int ps, int P, int pages_per_split,
+                 int n_splits, float scale) {
+  using L = DecodeTile<BITS, DK, DV>;
+  constexpr int BK = MMA_BK, KS = L::KS, VS = L::VS, PS = L::PS;
+  constexpr int RK = L::RK, RV = L::RV, OW = L::OW;
+  constexpr int KD = DK / 16;           // k-steps of S = Q K^T
+  constexpr int NO = OW / 8;            // a context warp's n8 tiles
+  constexpr int DKC = DK / 8;           // 16-byte chunks a Q row
+  static_assert(DK % 16 == 0 && DV % 32 == 0 && NO % 2 == 0, "head widths");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = reinterpret_cast<bf16*>(smem_raw + L::V);
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + L::Q);
+  bf16* Ps = reinterpret_cast<bf16*>(smem_raw + L::P);
+  unsigned char* Kq = smem_raw + L::RAW;
+  unsigned char* Vq = Kq + BK * RK;
+  float* Ksc = reinterpret_cast<float*>(smem_raw + L::SC);
+  float* Vsc = Ksc + BK;
+  __shared__ int s_row[BK];             // pool row of each key (-1: dead)
+  __shared__ float s_red[2][MMA_NT / 32][DEC_BQ];   // row max, row sum
+
+  const int split = blockIdx.x, b = blockIdx.y / KV, kvh = blockIdx.y % KV;
+  const int G = H / KV, rows = Sq * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c4 = lane & 3;
+  const int kw = warp * 16;             // the warp's keys in S
+
+  // this lane's query rows g and g + 8 and their positions (-1 for a
+  // padding row: it sees nothing and is never stored); the slot's
+  // largest position, where the key loop stops
+  const int qp0 = g < rows ? qpos[b * Sq + g / G] : -1;
+  const int qp1 = g + 8 < rows ? qpos[b * Sq + (g + 8) / G] : -1;
+  int maxq = -1;
+  for (int i = 0; i < Sq; ++i) maxq = max(maxq, qpos[b * Sq + i]);
+
+  // keys of this split that any row may see: [ks0, klim)
+  const int* tb = tbl + (size_t)b * P;
+  const int j0 = split * pages_per_split;
+  const int j1 = min(j0 + pages_per_split, P);
+  const int ks0 = j0 * ps;
+  const int klim = min(min(j1 * ps, kv_valid[b]), maxq + 1);
+  const int nt = klim > ks0 ? (klim - ks0 + BK - 1) / BK : 0;
+
+  float acc[NO][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m0 = ATTN_NEG_INF, m1 = ATTN_NEG_INF, l0 = 0.f, l1 = 0.f;
+  unsigned qf[KD][4];
+  bool q_ready = false;
+
+  if (nt > 0) {                         // Q, committed with the first tile
+    for (int c = tid; c < DEC_BQ * DKC; c += MMA_NT) {
+      const int rr = c / DKC, d = (c % DKC) * 8, Rc = min(rr, rows - 1);
+      const bf16* src =
+          q + (((size_t)b * Sq + Rc / G) * H + kvh * G + Rc % G) * DK + d;
+      cp_async16(Qs + rr * KS + d, src, rr < rows);
+    }
+  }
+  for (int t = 0; t < nt; ++t) {
+    const int k0 = ks0 + t * BK;
+    int row = -1;
+    if (tid < BK) {
+      const int kpos = k0 + tid;
+      if (kpos < klim) {
+        const int j = kpos / ps, page = tb[j];
+        if (page >= 0) row = page * ps + (kpos - j * ps);
+      }
+      s_row[tid] = row;
+    }
+    // the previous tile is consumed; a tile with no live key is skipped
+    if (!__syncthreads_or(row >= 0)) continue;
+    const auto* kp = reinterpret_cast<const unsigned char*>(kpool);
+    const auto* vp = reinterpret_cast<const unsigned char*>(vpool);
+    if constexpr (BITS == 0) {
+      copy_rows<DK * 2, KS * 2, BK, MMA_NT>(
+          reinterpret_cast<unsigned char*>(Ks), kp, s_row, KV, kvh, tid);
+      copy_rows<DV * 2, VS * 2, BK, MMA_NT>(
+          reinterpret_cast<unsigned char*>(Vs), vp, s_row, KV, kvh, tid);
+    } else {
+      if (tid < BK) {
+        cp_async4(Ksc + tid, row >= 0 ? kscale + row : kscale, row >= 0);
+        cp_async4(Vsc + tid, row >= 0 ? vscale + row : vscale, row >= 0);
+      }
+      copy_rows<RK, RK, BK, MMA_NT>(Kq, kp, s_row, KV, kvh, tid);
+      copy_rows<RV, RV, BK, MMA_NT>(Vq, vp, s_row, KV, kvh, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if constexpr (BITS != 0) {          // the raw rows into the bf16 tiles
+      widen_rows<BITS, DK, KS, MMA_NT>(Ks, Kq, Ksc, 0, BK, tid);
+      widen_rows<BITS, DV, VS, MMA_NT>(Vs, Vq, Vsc, 0, BK, tid);
+      __syncthreads();
+    }
+    if (!q_ready) {                     // block-uniform
+      // Q fragments: (q * scale) rounded to bf16, as the reference's
+      // `(q * scale).astype(q.dtype)`
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        ldsm_x4(qf[kk], Qs + (lane & 15) * KS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = unpack_bf16(qf[kk][e]);
+          qf[kk][e] = pack_bf16(f.x * scale, f.y * scale);
+        }
+      }
+      q_ready = true;
+    }
+
+    // S = Q K^T for the warp's 16 keys
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    const bf16* Kt = Ks + (kw + (lane & 7) + (lane >> 4) * 8) * KS +
+                     ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned kb[4];
+      ldsm_x4(kb, Kt + kk * 16);
+      mma_bf16(s[0], qf[kk], kb[0], kb[1]);
+      mma_bf16(s[1], qf[kk], kb[2], kb[3]);
+    }
+    // mask: a key counts for a row iff it is live and kpos <= qpos
+    float mx0 = ATTN_NEG_INF, mx1 = ATTN_NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = kw + 8 * j + 2 * c4 + (e & 1);
+        const int qp = e < 2 ? qp0 : qp1;
+        if (!(s_row[col] >= 0 && k0 + col <= qp)) s[j][e] = ATTN_NEG_INF;
+        if (e < 2) mx0 = fmaxf(mx0, s[j][e]);
+        else mx1 = fmaxf(mx1, s[j][e]);
+      }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    if (c4 == 0) {
+      s_red[0][warp][g] = mx0;
+      s_red[0][warp][g + 8] = mx1;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < MMA_NT / 32; ++w) {
+      mx0 = fmaxf(mx0, s_red[0][w][g]);
+      mx1 = fmaxf(mx1, s_red[0][w][g + 8]);
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mn = e < 2 ? mn0 : mn1;
+        p[e] = s[j][e] <= ATTN_NEG_INF / 2 ? 0.f : expf(s[j][e] - mn);
+      }
+      sum0 += p[0] + p[1];
+      sum1 += p[2] + p[3];
+      const int col = kw + 8 * j + 2 * c4;
+      *reinterpret_cast<unsigned*>(Ps + g * PS + col) = pack_bf16(p[0], p[1]);
+      *reinterpret_cast<unsigned*>(Ps + (g + 8) * PS + col) =
+          pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
+    }
+    if (c4 == 0) {
+      s_red[1][warp][g] = sum0;
+      s_red[1][warp][g + 8] = sum1;
+    }
+    __syncthreads();                    // P and the warps' sums are written
+    sum0 = sum1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < MMA_NT / 32; ++w) {
+      sum0 += s_red[1][w][g];
+      sum1 += s_red[1][w][g + 8];
+    }
+    const float corr0 = expf(m0 - mn0), corr1 = expf(m1 - mn1);
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+
+    // O += P V[:, the warp's OW columns]
+    if (warp < L::CW) {                 // warp-uniform
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+        acc[i][0] *= corr0;
+        acc[i][1] *= corr0;
+        acc[i][2] *= corr1;
+        acc[i][3] *= corr1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        unsigned pf[4];
+        ldsm_x4(pf, Ps + (lane & 15) * PS + kk * 16 + (lane >> 4) * 8);
+        const bf16* Vt = Vs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                  VS + warp * OW + (lane >> 4) * 8;
+#pragma unroll
+        for (int p = 0; p < NO / 2; ++p) {
+          unsigned vb[4];
+          ldsm_x4_t(vb, Vt + 16 * p);
+          mma_bf16(acc[2 * p], pf, vb[0], vb[1]);
+          mma_bf16(acc[2 * p + 1], pf, vb[2], vb[3]);
+        }
+      }
+    }
+  }
+  cp_async_commit();                    // Q's copies when no tile was live
+  cp_async_wait<0>();
+
+  // the partials of this lane's valid rows: m and l from warp 0 (every
+  // warp holds the same), acc as float2 pairs straight from the registers
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int R = g + 8 * half;
+    if (R >= rows) continue;
+    const size_t os =
+        ((((size_t)b * Sq + R / G) * KV + kvh) * G + R % G) * n_splits + split;
+    if (warp == 0 && c4 == 0) {
+      m_out[os] = half ? m1 : m0;
+      l_out[os] = half ? l1 : l0;
+    }
+    if (warp < L::CW) {
+      float* dst = acc_out + os * DV + warp * OW + 2 * c4;
+#pragma unroll
+      for (int i = 0; i < NO; ++i)
+        *reinterpret_cast<float2*>(dst + 8 * i) =
+            make_float2(acc[i][2 * half], acc[i][2 * half + 1]);
+    }
+  }
+}
+
+template <int BITS, int DK, int DV>
+int launch_decode(const Args& a) {
+  // 16-byte rows, as launch_mma's
+  if (!aligned16(a.q) || !aligned16(a.kp) || !aligned16(a.vp) ||
+      !aligned16(a.acc))
+    return (int)cudaErrorInvalidValue;
+  using S = stored_t<bf16, BITS>;
+  static bool smem_ok = false;
+  const size_t smem = DecodeTile<BITS, DK, DV>::BYTES;
+  cudaError_t e = allow_smem(paged_decode_mma<BITS, DK, DV>, smem, &smem_ok);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(a.ns, a.B * a.KV);
+  paged_decode_mma<BITS, DK, DV><<<grid, MMA_NT, smem, a.s>>>(
+      static_cast<const bf16*>(a.q), static_cast<const S*>(a.kp),
+      static_cast<const S*>(a.vp), a.ks, a.vs, a.tbl, a.qpos, a.kvv, a.m, a.l,
+      a.acc, a.Sq, a.H, a.KV, a.ps, a.P, a.pps, a.ns,
+      1.f / sqrtf((float)DK));
+  return (int)cudaGetLastError();
+}
+
+// The route, by (dtype, bits, rows), before launch: bf16 on any pool
+// (fp, int8 or int4) on the tensor cores, decode rows (Sq * G <= 16) on
+// the one-tile route and chunks on the FA2 ring; float32 on FMA blocks of
+// 16 rows (decode) or 64 (chunks).
 template <typename T, int BITS, int DK, int DV>
 int pick_route(const Args& a) {
   const int rows = a.Sq * (a.H / a.KV);
-  if (rows < MMA_MIN_ROWS) return launch_fma<T, BITS, DK, DV, 16>(a);
   if constexpr (std::is_same_v<T, bf16>) {
+    if (rows < MMA_MIN_ROWS) return launch_decode<BITS, DK, DV>(a);
     return launch_mma<BITS, DK, DV>(a);
   } else {
+    if (rows < MMA_MIN_ROWS) return launch_fma<T, BITS, DK, DV, 16>(a);
     return launch_fma<T, BITS, DK, DV, 64>(a);
   }
 }

@@ -27,18 +27,21 @@ dequantizes each page as it stages it, with the reference's op sequence
 type), and runs the fp kernel's score and softmax code.
 
 The GQA source chooses its route before launch by (dtype, bits, rows =
-Sq x H / KV): a bf16 chunk (rows > 16) on any pool, i.e. every resumed
+Sq x H / KV): bf16 on any pool (fp, int8 or int4) runs on the tensor
+cores, decode rows (rows <= 16, every GQA decode step) on
+``paged_decode_mma`` (the rows as one ``mma.sync`` m16 tile against one
+``cp.async`` key tile at a time) and chunks (rows > 16: every resumed
 GQA chunk, MLA's expanded window and every GQA chunk on an int8 or int4
-pool (fresh ones included), runs on the tensor cores (``mma.sync`` with
-a ``cp.async`` K/V ring read through the page table; a quantized pool's
-raw rows and scales go through the ring and are widened to bf16 in
-shared memory); decode rows and float32 run the CUDA-core tile of
-``flash_tile.cuh``.  The MLA source chooses by dtype alone: bf16 on any
-latent pool (fp, int8 or int4) runs ``mla_partials_mma`` (the scores and
-the context on ``mma.sync`` from one ``cp.async`` key tile of 64 latent
-rows, which are key and value at once; a quantized pool's raw rows are
-widened to bf16 in shared memory), float32 the FMA kernel.  No route
-falls back on another (the ``.cu`` heads say how each works).
+pool, fresh ones included) on ``paged_partials_mma`` (a ``cp.async`` K/V
+ring read through the page table); a quantized pool's raw rows and
+scales are widened to bf16 in shared memory on both.  Float32 runs the
+CUDA-core tile of ``flash_tile.cuh``.  The MLA source chooses by dtype
+alone: bf16 on any latent pool (fp, int8 or int4) runs
+``mla_partials_mma`` (the scores and the context on ``mma.sync`` from
+one ``cp.async`` key tile of 64 latent rows, which are key and value at
+once; a quantized pool's raw rows are widened to bf16 in shared memory),
+float32 the FMA kernel.  No route falls back on another (the ``.cu``
+heads say how each works).
 
 The partials come per SPLIT of the logical page axis: split ``s`` covers
 pages ``[s*c, (s+1)*c)`` with ``c = pages_per_split``.  With ``c = 1``
@@ -46,9 +49,10 @@ they are the reference's per-logical-page partials, identities and all.
 A resumed chunk's per-page partials grow as Sq x P (hundreds of MB per
 layer at serving widths), so the caller raises ``c`` and the kernel
 walks each split's pages in order — the same reduction as the combine.
-MLA decode takes one tile of MLA_TILE_KEYS keys a split, more only
-where its partials would pass the caller's memory budget
-(:func:`repro_torch.models.mla.decode_split`).
+Decode, GQA's and MLA's, takes one tile of TILE_KEYS keys a split, more
+only where its partials would pass the caller's memory budget
+(:func:`repro_torch.models.attention.page_split`,
+:func:`repro_torch.models.mla.decode_split`).
 
 Each wrapper takes the plain PyTorch version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.  Each launch
@@ -76,9 +80,10 @@ HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
 QUANT_HEAD_DIMS = (128,)
 # (r, dr) the MLA kernels are built for: deepseek-v2's latent widths
 MLA_DIMS = ((512, 64),)
-# keys in one tile of the MLA kernel's bf16 route (MMA_BK in
-# mla_paged_decode.cu); MLA decode's engine split covers one tile
-MLA_TILE_KEYS = 64
+# keys in one tile of the bf16 decode routes (MMA_BK in
+# paged_flash_decode.cu and mla_paged_decode.cu); the engine's decode
+# split covers one tile, GQA's and MLA's alike
+TILE_KEYS = 64
 FORMATS = {8: INT8, 4: INT4}      # quantized pools by storage bits
 
 launches = 0          # GQA kernel launches (CUDA path only)
@@ -220,7 +225,12 @@ def paged_flash_decode_partials(k_pool, v_pool, q, tbl, qpos, kv_valid, *,
     QUANTIZED pools (the reference's keywords): ``bits`` 8 or 4, int8
     pools of last dim dk * bits / 8 (resp. dv), and ``k_scale`` /
     ``v_scale`` (N, ps) float32 row scales, read through the same table;
-    the softmax scale and ``acc`` use the full widths."""
+    the softmax scale and ``acc`` use the full widths.
+
+    On the card the dtype and the rows Sq x H / KV pick the kernel's
+    route before launch: bf16 runs on the tensor cores, decode rows
+    (<= 16) on ``paged_decode_mma`` and chunks on ``paged_partials_mma``;
+    float32 runs ``paged_partials_kernel`` on the CUDA cores."""
     global launches, quant_launches
     dk, dv = _check(k_pool, v_pool, q, tbl, qpos, kv_valid, pages_per_split,
                     k_scale, v_scale, bits)

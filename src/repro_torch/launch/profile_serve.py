@@ -46,6 +46,9 @@ from repro_torch.models.model import init_params, quantize_for_serving
 from repro_torch.serve import Request, ServeConfig, ServingEngine
 
 COMBINE = "combine"                 # the combine's profiler range
+# name parts of the paged partials kernels: the GQA kernel's chunk route
+# and FMA tile, the MLA kernels, and the GQA decode route
+PARTIALS_KERNELS = ("partials_", "paged_decode_mma")
 
 
 def _wrap_combine():
@@ -116,7 +119,8 @@ def _window(eng, ticks: int, profiled: bool) -> dict:
             "partials_kernels": [{"op": k[:100], "ms_per_tick":
                                   us / 1e3 / ticks, "calls_per_tick":
                                   n / ticks}
-                                 for k, us, n in dev if "partials_" in k]}
+                                 for k, us, n in dev
+                                 if any(p in k for p in PARTIALS_KERNELS)]}
 
 
 def main(argv=None):

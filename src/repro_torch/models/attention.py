@@ -11,7 +11,9 @@ the two kernels instead, by default, on every dispatch.
   * a RESUMED chunk (mode='chunk' with offset) and a paged DECODE step
     scatter the new K/V into the pool first, then run the paged
     flash-decode kernel through the page table, followed by the
-    reference's combine :func:`_combine_page_partials`.
+    reference's combine :func:`_combine_page_partials`.  Decode cuts the
+    page axis into splits of one 64-key tile (:func:`page_split`), where
+    the reference takes one page a split.
 
 A QUANTIZED pool (``ServeConfig.kv_format`` int8/int4: int8 ``k``/``v``
 pools with ``k_scale``/``v_scale`` row scales, recognised by its leaves,
@@ -32,7 +34,8 @@ import torch
 
 from repro_torch.core.pageformat import FP, format_for_packed
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.paged_flash_decode import paged_flash_decode_partials
+from repro_torch.kernels.paged_flash_decode import (TILE_KEYS,
+                                                    paged_flash_decode_partials)
 from repro_torch.models.common import (ParamSpec, broadcast_offset,
                                        chunk_lengths, chunk_valid_mask, dense,
                                        paged_scatter, paged_scatter_quant,
@@ -43,6 +46,9 @@ NEG_INF = -1e30
 # of a resumed chunk grow as Sq x P; above this the pages are walked in
 # splits of several pages inside the kernel (see paged_flash_decode).
 PARTIALS_BYTES_BUDGET = 64 << 20
+# query rows (Sq x H / KV) up to which a GQA call is decode: one m16 tile
+# of the bf16 kernel's decode route, which takes one key tile a split
+DECODE_ROWS = 16
 
 
 def attn_specs(cfg) -> dict:
@@ -102,19 +108,53 @@ def cache_page_format(cache: dict, full_feat: int):
 def _pages_per_split(b: int, sq: int, hq: int, p: int, dv: int) -> int:
     """Pages each kernel block walks: 1 (the reference's per-page
     partials) unless that would put more than PARTIALS_BYTES_BUDGET in the
-    float32 ``acc``; decode at serving widths stays at 1."""
+    float32 ``acc``; a chunk's split, and decode's floor under
+    :func:`tile_split`."""
     per_split = max(1, b * sq * hq * dv * 4)
     n_split = max(1, min(p, PARTIALS_BYTES_BUDGET // per_split))
     return -(-p // n_split)
 
 
+def tile_pages_per_split(page_size: int, p: int) -> int:
+    """Pages one key tile of the bf16 decode kernels covers, TILE_KEYS //
+    ``page_size`` (4 at page 16, 2 at page 32), at least 1 and at most
+    the table's ``p``.  One page a split would write float32 partials as
+    large as the pages they come from; one tile a split writes a
+    quarter of them at page 16 and fills the tile's 64 keys."""
+    return max(1, min(TILE_KEYS // page_size, p))
+
+
+def tile_split(page_size: int, b: int, sq: int, hq: int, p: int,
+               dv: int) -> int:
+    """Decode's pages a split: one key tile (:func:`tile_pages_per_split`),
+    or more where the float32 partials of (``b``, ``sq``, ``hq``) query
+    rows of width ``dv`` over ``p`` pages would otherwise pass
+    PARTIALS_BYTES_BUDGET, as :func:`_pages_per_split` caps them."""
+    return max(tile_pages_per_split(page_size, p),
+               _pages_per_split(b, sq, hq, p, dv))
+
+
+def page_split(b: int, sq: int, hq: int, kv: int, p: int, page_size: int,
+               dv: int) -> int:
+    """Pages a split of the GQA partials: decode (``sq * hq / kv`` <=
+    DECODE_ROWS query rows) takes :func:`tile_split`, chunks
+    :func:`_pages_per_split`.  It reads the rows, page size, table width
+    and budget alone (no device or dtype), so the CPU and the card cut
+    the page axis alike."""
+    if sq * (hq // kv) <= DECODE_ROWS:
+        return tile_split(page_size, b, sq, hq, p, dv)
+    return _pages_per_split(b, sq, hq, p, dv)
+
+
 def _page_partials(q, k_pool, v_pool, tbl, qpos, kv_valid, **quant):
     """Flash partials of ``q`` against the pool through ``tbl``: m, l
-    (B, Sq, KV, G, S) and acc (..., S, dv) over S page splits.
-    ``quant``: a quantized pool's ``k_scale``, ``v_scale`` and ``bits``."""
+    (B, Sq, KV, G, S) and acc (..., S, dv) over S page splits
+    (:func:`page_split`).  ``quant``: a quantized pool's ``k_scale``,
+    ``v_scale`` and ``bits``."""
     b, sq, hq, _ = q.shape
+    ps, kv = k_pool.shape[1], k_pool.shape[2]
     dv = v_pool.shape[-1] * (8 // quant["bits"] if quant else 1)
-    c = _pages_per_split(b, sq, hq, tbl.shape[1], dv)
+    c = page_split(b, sq, hq, kv, tbl.shape[1], ps, dv)
     return paged_flash_decode_partials(k_pool, v_pool, q, tbl, qpos,
                                        kv_valid, pages_per_split=c, **quant)
 

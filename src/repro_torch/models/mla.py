@@ -42,11 +42,10 @@ import torch
 
 from repro_torch.core.pageformat import FP
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.paged_flash_decode import (MLA_TILE_KEYS,
-                                                    mla_paged_decode_partials)
+from repro_torch.kernels.paged_flash_decode import mla_paged_decode_partials
 from repro_torch.models.attention import (_combine_page_partials,
-                                          _page_partials, _pages_per_split,
-                                          cache_page_format)
+                                          _page_partials, cache_page_format,
+                                          tile_pages_per_split, tile_split)
 from repro_torch.models.common import (ParamSpec, broadcast_offset,
                                        chunk_lengths, chunk_valid_mask, dense,
                                        paged_gather, paged_gather_quant,
@@ -151,7 +150,7 @@ def _resume(p, qq, cache, pages, entry, t, ok, off_b, len_b, cfg, fmt):
 
 def mla_decode_pages_per_split(page_size: int, p: int) -> int:
     """Pages a split of MLA decode's partials covers: one key tile of
-    the bf16 kernel, MLA_TILE_KEYS // ``page_size`` pages (4 at page
+    the bf16 kernel, TILE_KEYS // ``page_size`` pages (4 at page
     16, 2 at page 32), at least 1 and at most the table's ``p``.
 
     It depends on the page size and the table width alone (no device,
@@ -162,8 +161,10 @@ def mla_decode_pages_per_split(page_size: int, p: int) -> int:
     tile's 64 keys.  Of 1, 2, 4 and 8 pages a split at page 16, the
     bf16 kernel is fastest at 4 on an H100 (``chip_smoke.py``'s
     ``mla_sweep``, PERF.md §6).  :func:`decode_split` raises it where
-    the partials would pass their memory budget."""
-    return max(1, min(MLA_TILE_KEYS // page_size, p))
+    the partials would pass their memory budget.  GQA decode takes the
+    same tile: this is
+    :func:`~repro_torch.models.attention.tile_pages_per_split`."""
+    return tile_pages_per_split(page_size, p)
 
 
 def decode_split(page_size: int, b: int, sq: int, h: int, p: int,
@@ -173,9 +174,9 @@ def decode_split(page_size: int, b: int, sq: int, h: int, p: int,
     partials of (``b``, ``sq``, ``h``) query rows of width ``r`` over
     ``p`` pages would otherwise pass ``PARTIALS_BYTES_BUDGET``, as
     ``_pages_per_split`` caps them (at 32 k tokens, page 16, B 32: 32
-    pages a split, 64 MiB a layer, not 512 MiB)."""
-    return max(mla_decode_pages_per_split(page_size, p),
-               _pages_per_split(b, sq, h, p, r))
+    pages a split, 64 MiB a layer, not 512 MiB): GQA decode's
+    :func:`~repro_torch.models.attention.tile_split` at width ``r``."""
+    return tile_split(page_size, b, sq, h, p, r)
 
 
 def _decode(p, q_nope, q_rope, cache, pages, entry, pos_b, x_dtype, cfg,

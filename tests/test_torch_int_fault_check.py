@@ -38,7 +38,14 @@ _spec = importlib.util.spec_from_file_location("chip_smoke",
 smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(smoke)
 
-PROMPT_LENS = (40, 23, 60, 9)
+# prompts of one to four chunks.  A request of one chunk (at most 16 + 32
+# positions here) decodes within one 64-key split of the paged partials,
+# where their plain version rounds as the plain forward's attention, so
+# its logits may equal the plain forward's exactly (ONE_SPLIT: held to
+# the bounds and the faults alone); 33 positions of prompt take the
+# decode past the first split
+PROMPT_LENS = (40, 23, 60, 9, 33)
+ONE_SPLIT = {3}
 OUTLIER_GAIN = 10.0
 
 
@@ -58,7 +65,7 @@ def served():
     cfg = cfg.with_(quant=parse_quant("w8a8"))
     params, _ = quantize_for_serving(cfg, params)
     # 32 new tokens, as the card's phase 6: 32 teacher-forced rows a
-    # request; prompts of one to four chunks
+    # request; prompts of one to four chunks (PROMPT_LENS)
     sc = ServeConfig(max_batch=4, max_prompt=16, page_size=4, max_seq=128,
                      max_new_tokens=32, record_logits=True)
     rng = np.random.RandomState(5)
@@ -92,7 +99,8 @@ def records(served):
 def test_the_engine_sits_within_both_bounds(records, rid):
     rec = records[rid]
     assert rec["noise_floor"] > 0 and rec["mean_sq_noise_floor"] > 0
-    assert rec["max_rel_err"] > 0, "the engine must differ by rounding"
+    if rid not in ONE_SPLIT:
+        assert rec["max_rel_err"] > 0, "the engine must differ by rounding"
     assert rec["max_rel_err"] <= rec["rel_tol"]
     assert rec["mean_sq_rel_err"] <= rec["mean_sq_rel_tol"]
     assert rec["rel_tol"] == smoke.SERVE_INT_NOISE_FACTOR * rec["noise_floor"]

@@ -4,10 +4,11 @@ The card is needed to run a kernel, not to read one: these tests follow
 the calls from each kernel entry through the sources and their headers,
 so that the bf16 routes provably reach a tensor-core instruction and an
 asynchronous copy, the float32 routes stay on the CUDA cores, and no port
-file reaches a library kernel.  The paged GQA kernel's bf16 chunk route
-runs on the tensor cores on fp, int8 and int4 pools (a quantized pool's
-raw rows widened to bf16 in shared memory); its decode and float32
-routes keep the CUDA-core tile of ``flash_tile.cuh``.  The MLA decode
+file reaches a library kernel.  The paged GQA kernel's bf16 routes, the
+decode route (<= 16 query rows, one key tile at a time) and the chunk
+route, run on the tensor cores on fp, int8 and int4 pools (a quantized
+pool's raw rows widened to bf16 in shared memory); its float32 routes
+keep the CUDA-core tile of ``flash_tile.cuh``.  The MLA decode
 kernel's bf16 route runs its scores and context on the tensor cores from
 one key tile, on fp, int8 and int4 latent pools; its float32 route
 stays on FMA.  The integer matmul, whose int32 sums are exact in any
@@ -94,6 +95,8 @@ def _reach(text, name):
     ("mpq_matmul.cu", "launch_wo_mma", "wo_mma_cols"),
     ("paged_flash_decode.cu", "launch_mma", "paged_partials_mma"),
     ("paged_flash_decode.cu", "dispatch_quant", "paged_partials_mma"),
+    ("paged_flash_decode.cu", "launch_decode", "paged_decode_mma"),
+    ("paged_flash_decode.cu", "dispatch_quant", "paged_decode_mma"),
     ("mla_paged_decode.cu", "mla_paged_decode_partials", "mla_partials_mma"),
     ("mla_paged_decode.cu", "mla_paged_decode_partials_quant",
      "mla_partials_mma"),
@@ -155,9 +158,9 @@ def test_float32_routes_stay_on_the_cuda_cores(source, entry, kernel):
      {"launch_mma", "launch_fma"}),
     ("mpq_matmul.cu", "wo_matmul", {"launch_wo_mma", "launch_wo_fma"}),
     ("paged_flash_decode.cu", "paged_flash_decode_partials",
-     {"launch_mma", "launch_fma"}),
+     {"launch_mma", "launch_decode", "launch_fma"}),
     ("paged_flash_decode.cu", "paged_flash_decode_partials_quant",
-     {"launch_mma", "launch_fma"}),
+     {"launch_mma", "launch_decode", "launch_fma"}),
     ("mla_paged_decode.cu", "mla_paged_decode_partials",
      {"launch_mma", "launch_fma"}),
     ("mla_paged_decode.cu", "mla_paged_decode_partials_quant",
@@ -184,36 +187,44 @@ def test_paged_kernels_still_include_flash_tile():
 @pytest.mark.parametrize("entry", ["paged_flash_decode_partials",
                                    "paged_flash_decode_partials_quant"])
 def test_paged_decode_and_float32_routes_keep_flash_tile(entry):
-    """Both entries, fp and quantized, reach the CUDA-core kernel for
-    their decode and float32 routes; it runs on ``FlashTile`` and reaches
-    no tensor-core instruction or async copy."""
+    """Both entries, fp and quantized: the bf16 decode route reaches the
+    tensor-core decode kernel (``mma_bf16`` and ``cp_async16``), and
+    the float32 decode and chunk routes reach only the CUDA-core kernel,
+    which runs on ``FlashTile`` and reaches no tensor-core instruction or
+    async copy; the FMA kernel is no longer built for bf16."""
     text = _text("paged_flash_decode.cu")
-    assert {"pick_route", "launch_fma", "paged_partials_kernel"} <= \
-        _reach(text, entry)
+    assert {"pick_route", "launch_decode", "paged_decode_mma", "launch_fma",
+            "paged_partials_kernel"} <= _reach(text, entry)
+    assert {"mma_bf16", "cp_async16", "cp_async_wait"} <= \
+        _reach(text, "paged_decode_mma")
     assert "FlashTile" in _body(text, "paged_partials_kernel")
     assert not {"mma_bf16", "ldsm_x4", "ldsm_x4_t", "cp_async16"} & \
         _reach(text, "paged_partials_kernel")
+    assert "launch_fma<__nv_bfloat16" not in text
 
 
 def test_the_paged_route_is_chosen_by_dtype_bits_and_rows():
-    """Decode rows (Sq * G <= 16, as chip_smoke's ``paged_route``) take
-    16-row FMA blocks on any pool; a bf16 chunk takes the tensor cores on
-    an fp, int8 or int4 pool alike (no condition on the bits); a float32
-    chunk never reaches the mma route, only 64-row FMA blocks; the choice
-    is made before launch, with no ``try``."""
+    """bf16 on any pool (fp, int8 or int4 alike: no condition on the
+    bits) takes the tensor cores: decode rows (Sq * G <= 16, as
+    chip_smoke's ``paged_route``) the one-tile decode kernel, chunks the
+    FA2 ring; float32 never reaches an mma route, only FMA blocks of 16
+    rows (decode) and 64 (chunks); the choice is made before launch,
+    with no ``try``."""
     text = _text("paged_flash_decode.cu")
     body = _body(text, "pick_route")
-    assert re.search(r"if \(rows < MMA_MIN_ROWS\) return launch_fma<T, BITS, "
-                     r"DK, DV, 16>\(a\);", body)
     assert re.search(r"if constexpr \(std::is_same_v<T, bf16>\) \{\s*"
-                     r"return launch_mma<BITS, DK, DV>\(a\);\s*\} else \{\s*"
+                     r"if \(rows < MMA_MIN_ROWS\) return launch_decode<BITS, "
+                     r"DK, DV>\(a\);\s*return launch_mma<BITS, DK, DV>\(a\);"
+                     r"\s*\} else \{\s*"
+                     r"if \(rows < MMA_MIN_ROWS\) return launch_fma<T, BITS, "
+                     r"DK, DV, 16>\(a\);\s*"
                      r"return launch_fma<T, BITS, DK, DV, 64>\(a\);\s*\}",
                      body)
-    assert body.index("launch_fma<T, BITS, DK, DV, 16>") < \
-        body.index("launch_mma")
-    assert body.count("launch_mma") == 1 and "BITS ==" not in body and \
+    assert body.count("launch_mma") == 1 and \
+        body.count("launch_decode") == 1 and "BITS ==" not in body and \
         "BITS !=" not in body
     assert re.search(r"constexpr int MMA_MIN_ROWS = 17;", text)
+    assert re.search(r"constexpr int DEC_BQ = MMA_MIN_ROWS - 1;", text)
     assert not re.search(r"\btry\b", body)
     # fp pools at every built head pair, quantized ones at 128 / 128
     assert "pick_route<T, 0, DK_, DV_>" in _body(text, "dispatch_dh")
@@ -243,6 +254,34 @@ def test_the_quantized_chunk_route_widens_raw_rows_in_shared_memory():
                      r"void __launch_bounds__\(MMA_NT\)\s*paged_partials_mma",
                      text)
     assert len(re.findall(r"\bmma_bf16\(", kernel)) == 4
+
+
+def test_the_quantized_decode_route_widens_raw_rows_in_shared_memory():
+    """On a quantized pool the decode kernel copies the raw rows and their
+    k and v scales with ``cp.async`` into their own region and widens the
+    whole tile into the bf16 K and V tiles with the chunk route's
+    ``widen_rows`` (the reference's op sequence); the score, softmax,
+    mask and store code is one template on BITS for fp, int8 and int4
+    pools, whose Q fragments are (q * scale) rounded to bf16."""
+    text = _text("paged_flash_decode.cu")
+    reached = _reach(text, "paged_decode_mma")
+    assert {"copy_rows", "widen_rows", "widen8", "lane_value", "cp_async4",
+            "cp_async16", "ldsm_x4", "ldsm_x4_t", "pack_bf16",
+            "mma_bf16"} <= reached, reached
+    kernel = _body(text, "paged_decode_mma")
+    assert re.search(r"copy_rows<RK, RK, BK, MMA_NT>\(Kq, kp, s_row, KV, "
+                     r"kvh, tid\);\s*copy_rows<RV, RV, BK, MMA_NT>\(Vq, vp, "
+                     r"s_row, KV, kvh, tid\);", kernel)
+    assert re.search(r"if constexpr \(BITS != 0\) \{[^}]*"
+                     r"widen_rows<BITS, DK, KS, MMA_NT>\(Ks, Kq, Ksc, 0, BK, "
+                     r"tid\);\s*widen_rows<BITS, DV, VS, MMA_NT>\(Vs, Vq, "
+                     r"Vsc, 0, BK, tid\);", kernel)
+    assert re.search(r"template <int BITS, int DK, int DV>\s*__global__ "
+                     r"void __launch_bounds__\(MMA_NT\)\s*paged_decode_mma",
+                     text)
+    assert len(re.findall(r"\bmma_bf16\(", kernel)) == 4
+    assert "__syncthreads_or" in kernel
+    assert "pack_bf16(f.x * scale, f.y * scale)" in kernel
 
 
 def test_the_mla_route_is_chosen_by_dtype_alone():
@@ -297,15 +336,33 @@ def test_the_mla_route_reads_keys_and_values_from_one_tile():
 
 
 def test_the_mla_tile_is_declared_once_beside_the_wrapper():
-    """MLA decode's engine split is one tile of the bf16 route: the
-    wrapper's MLA_TILE_KEYS, which the model layer imports, is the
-    kernel's MMA_BK."""
-    text = _text("mla_paged_decode.cu")
-    tile = re.search(r"constexpr int MMA_BK = (\d+);", text)
-    assert tile and int(tile.group(1)) == pfd.MLA_TILE_KEYS
+    """Decode's engine split is one tile of the bf16 routes: the
+    wrapper's TILE_KEYS is the MMA_BK of both kernels, and MLA's split
+    takes GQA's tile functions rather than a tile of its own."""
+    for source in ("mla_paged_decode.cu", "paged_flash_decode.cu"):
+        tile = re.search(r"constexpr int MMA_BK = (\d+);", _text(source))
+        assert tile and int(tile.group(1)) == pfd.TILE_KEYS, source
     model = (PKG / "models" / "mla.py").read_text()
-    assert "MLA_TILE_KEYS" in model
+    imported = re.search(r"from repro_torch\.models\.attention import "
+                         r"\(([^)]*)\)", model)
+    assert imported
+    assert {"tile_pages_per_split", "tile_split"} <= \
+        set(re.findall(r"\w+", imported.group(1)))
     assert not re.search(r"^[A-Z_]*TILE[A-Z_]* = \d+", model, re.M)
+    assert "TILE_KEYS" not in re.sub(r'"""[\s\S]*?"""', "", model)
+
+
+def test_the_decode_rows_are_the_kernels_route_switch():
+    """The engine's decode (one tile a split) is exactly the rows that the
+    GQA source sends to its decode route, and ``chip_smoke.py`` names the
+    route by the same constant."""
+    from repro_torch.models import attention
+    rows = re.search(r"constexpr int MMA_MIN_ROWS = (\d+);",
+                     _text("paged_flash_decode.cu"))
+    assert rows and attention.DECODE_ROWS == int(rows.group(1)) - 1
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    route = re.search(r"def paged_route\([\s\S]*?\n\n\n", smoke).group(0)
+    assert "DECODE_ROWS" in route and not re.search(r"\b16\b", route)
 
 
 def test_an_edited_header_rebuilds_every_library(tmp_path, monkeypatch):

@@ -59,7 +59,7 @@ def _t(a):
 ])
 def test_the_decode_split_is_one_key_tile(page_size, p, want):
     assert mla.mla_decode_pages_per_split(page_size, p) == want
-    assert pfd.MLA_TILE_KEYS == 64
+    assert pfd.TILE_KEYS == 64
 
 
 def test_the_decode_split_reads_no_device_or_config():
