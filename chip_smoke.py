@@ -108,6 +108,24 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   11. a 2-layer float32 version of each model at int4 through the
       engine: greedy tokens equal the plain forward's, but at a printed
       near-tie under phase 7's per-position rule.
+  12. overcommitted serving with swap preemption, at full width and
+      depth: qwen2.5-3b on a bf16 pool (phase 3's weights), then on an
+      int8 pool, and deepseek-v2-lite-dense on its latent pool (phase 8's
+      weights), each serving OVERCOMMIT_ARRIVALS through an OVERCOMMIT
+      pool (78 pages, reserve_decode_pages=False, eos_id -1).  The
+      preemption log (tick, grower, victim, the victim's prefill_done and
+      pos) must equal the one the port's engine computes on the CPU at one
+      narrow float32 layer and hold OVERCOMMIT_MIN (victims mid-prompt and
+      mid-decode, one preempted twice, one holding a prefix-shared page);
+      every swap-in restores its snapshot bit for bit; every request
+      completes with no fault; swap-ins equal preemptions; every page is
+      free at the end; each dispatch launches its one attention kernel
+      once a layer.  Each preempted request's teacher-forced logits are
+      held as in phase 3 (bf16 pool), 10 (int8) and 8 (latent pool), and
+      the same engine with its swap-ins restoring the pages rolled by one
+      logical page, run until its first preempted request completes,
+      must land outside the bound there.  Bytes per snapshot and the
+      swap-out / swap-in times are printed beside the card.
 
 Phase 2 also holds the MLA path's kernels (phase 2b): the flash forward
 at q/k 192 / v 128 on a fresh 256-token chunk (KV = H = 16), the paged
@@ -2200,6 +2218,342 @@ def serve_kv_f32(torch, name, fmt):
              f"forward: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: overcommitted serving with swap preemption.
+# ---------------------------------------------------------------------------
+
+# the overcommitted pool: 8 slots, 256-row chunks, page 16, and 78 pages,
+# where the first wave's nine requests would reserve 147 for their worst
+# cases (reserve_decode_pages=False), so that decode growth preempts.  With
+# eos_id -1 every request emits max_new_tokens and the schedule depends on
+# no token: only on this geometry and the prompts.  This traffic preempts
+# 7 times on the CPU (``cpu_swap_log``): the sharer twice (first while it
+# holds the source's 16 pages), a 280-token prompt once mid-prompt and
+# once mid-decode, and three others mid-decode
+OVERCOMMIT = dict(max_batch=8, max_prompt=256, page_size=16, max_seq=1024,
+                  max_new_tokens=64, num_pages=78,
+                  reserve_decode_pages=False, eos_id=-1, record_logits=True)
+# (submit tick, prompt length) of each request, in rid order: a first wave
+# at tick 0, the sharer at tick 2, and a second wave at tick 60 while the
+# first drains; the sharer (rid OVERCOMMIT_SHARE[1]) repeats the source's
+# first OVERCOMMIT_SHARE[2] tokens, whole pages it maps from the source
+OVERCOMMIT_ARRIVALS = ((0, 300), (0, 17), (0, 47), (0, 60), (0, 85), (0, 101),
+                       (0, 520), (2, 296), (3, 300), (60, 47), (60, 280),
+                       (60, 900))
+OVERCOMMIT_SHARE = (0, 7, 256)
+# what the schedule must contain, checked on the card and in its CPU log
+OVERCOMMIT_MIN = {"preemptions": 4, "mid_prompt": 1, "mid_decode": 1,
+                  "twice": 1, "shared": 1}
+
+
+def overcommit_traffic(vocab: int, seed: int = 9):
+    """(submit tick, rid, prompt) of every phase-12 request."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    prompts = [[int(t) for t in rng.randint(0, vocab, n)]
+               for _, n in OVERCOMMIT_ARRIVALS]
+    src, sharer, rows = OVERCOMMIT_SHARE
+    prompts[sharer] = prompts[src][:rows] + prompts[sharer][rows:]
+    return [(t, rid, p) for rid, ((t, _), p) in
+            enumerate(zip(OVERCOMMIT_ARRIVALS, prompts))]
+
+
+def watch_swaps(torch, eng, restore_check=True):
+    """Log every preemption of ``eng`` as [tick, grower rid, victim rid,
+    the victim's prefill_done, its pos], with whether the victim was
+    mid-prompt and whether it held a page another slot references (the
+    grower: the slot ``Scheduler.victim`` was told to spare); time every
+    swap-out and swap-in on the host clock, the card synchronized before
+    and after; with ``restore_check``, hold every swap-in's restored
+    pages against its snapshot bit for bit (``torch.equal``, every
+    leaf)."""
+    import numpy as np
+    rec = {"log": [], "mid_prompt": [], "shared": [], "nbytes": [],
+           "out_ms": [], "in_ms": [], "restored": 0}
+    spared = {}
+    victim, out, inn = eng.sched.victim, eng._swap_out, eng._swap_in
+    on_card = eng.device.type == "cuda"
+
+    def pick(exclude):
+        spared["slot"] = exclude
+        return victim(exclude)
+
+    def timed(fn, *args):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        if on_card:
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def swap_out(slot):
+        meta = eng.sched.slots[slot]
+        pages = eng.alloc.page_table[slot]
+        rec["log"].append([eng.tick_no,
+                           eng.sched.slots[spared["slot"]].req.rid,
+                           meta.req.rid, meta.prefill_done,
+                           int(eng.positions[slot])])
+        rec["mid_prompt"].append(meta.prefill_done < len(meta.req.prompt))
+        rec["shared"].append(
+            bool((eng.alloc.refcount[pages[pages >= 0]] > 1).any()))
+        rec["out_ms"].append(timed(out, slot))
+        rec["nbytes"].append(eng.sched.swapped[-1].nbytes)
+
+    def swap_in(slot, sw):
+        rec["in_ms"].append(timed(inn, slot, sw))
+        if not restore_check:
+            return
+        phys = torch.from_numpy(eng.alloc.page_table[
+            slot, :sw.n_pages].astype(np.int64)).to(eng.device)
+        for leaf, rows in zip(eng._pool_leaves(), sw.pool_rows):
+            if not torch.equal(leaf[:, phys].cpu(), rows):
+                fail(f"swap-in of request {sw.req.rid} did not restore its "
+                     "snapshot bit for bit")
+        rec["restored"] += 1
+    eng.sched.victim, eng._swap_out, eng._swap_in = pick, swap_out, swap_in
+    return rec
+
+
+def swap_summary(rec):
+    """The schedule's counts that OVERCOMMIT_MIN holds."""
+    victims = [e[2] for e in rec["log"]]
+    return {"preemptions": len(victims),
+            "mid_prompt": sum(rec["mid_prompt"]),
+            "mid_decode": len(victims) - sum(rec["mid_prompt"]),
+            "twice": sum(victims.count(v) >= 2 for v in set(victims)),
+            "shared": sum(rec["shared"])}
+
+
+def roll_restores(eng):
+    """The planted fault: every swap-in restores its pages rolled by one
+    logical page."""
+    good = eng._swap_in
+
+    def faulty(slot, sw):
+        sw.pool_rows = [t.roll(1, dims=1) for t in sw.pool_rows]
+        good(slot, sw)
+    eng._swap_in = faulty
+
+
+def drive_plan(torch, eng, plan, until=None):
+    """Submit each request once the engine's clock reaches its tick, and
+    tick until all are done, or until ``until(requests by rid)`` holds
+    after a tick.  Returns the requests by rid and the wall seconds."""
+    from repro_torch.serve import Request
+    plan, reqs = sorted(plan), {}
+    on_card = eng.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while plan or eng.sched.has_work():
+        while plan and plan[0][0] <= eng.tick_no:
+            _, rid, prompt = plan.pop(0)
+            reqs[rid] = Request(rid, prompt)
+            eng.submit(reqs[rid])
+        eng.tick()
+        if until is not None and until(reqs):
+            break
+    if on_card:
+        torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def cpu_swap_log(torch, cfg, sc, plan):
+    """The preemption log ``plan`` must produce, computed on the CPU: the
+    port's engine with one float32 layer of narrow widths, the same
+    serving geometry and pool format, and the same prompts relabelled one
+    to one onto a small vocabulary (prefix sharing sees the same equal
+    tokens; with eos_id -1 no other decision reads a token)."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServingEngine
+    ids = sorted({t for _, _, p in plan for t in p})
+    relabel = {t: i for i, t in enumerate(ids)}
+    narrow = dict(n_layers=1, d_model=64, n_heads=4, d_ff=128, head_dim=0,
+                  vocab_size=len(ids), dtype=torch.float32)
+    if cfg.kv_lora_rank:
+        narrow.update(n_kv_heads=4, kv_lora_rank=32, qk_nope_dim=16,
+                      qk_rope_dim=8, v_head_dim=16,
+                      pattern=(("scan", "mla_mlp", 1),))
+    else:
+        narrow.update(n_kv_heads=2, pattern=(("scan", "attn_mlp", 1),))
+    small = cfg.with_(**narrow)
+    params = init_params(small, torch.Generator().manual_seed(0),
+                         device="cpu")
+    eng = ServingEngine(small, params, sc, device="cpu")
+    rec = watch_swaps(torch, eng, restore_check=False)
+    drive_plan(torch, eng, [(t, rid, [relabel[x] for x in p])
+                            for t, rid, p in plan])
+    return rec["log"]
+
+
+def serve_overcommit(torch, card, cfg, params, kv_format, logit_check,
+                     want, tag):
+    """Phase 12, one run: serve the phase-12 traffic at full width on an
+    overcommitted ``kv_format`` pool.  The preemption log must equal the
+    one computed on the CPU (``cpu_swap_log``) and hold OVERCOMMIT_MIN;
+    every swap-in restores its snapshot bit for bit; every request
+    completes with max_new_tokens tokens and no fault; swap-ins equal
+    preemptions; every page is free at the end; every dispatch launches
+    ``want[kind]`` once a layer and no other attention kernel.  Each
+    preempted request's teacher-forced logits must pass ``logit_check``
+    (request -> (error, bound)), and the same engine with its swap-ins
+    rolled by one logical page (``roll_restores``) must land outside the
+    bound.  The faulty engine runs only until its first preempted request
+    completes (the schedule reads no token, so it preempts as the good
+    one did), and the fault is read on the preempted requests done by
+    then.  Returns the launches of the run by kernel."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.serve import ServeConfig, ServingEngine
+    sc = ServeConfig(kv_format=kv_format, **OVERCOMMIT)
+    plan = overcommit_traffic(cfg.vocab_size)
+    t0 = time.perf_counter()
+    expected = cpu_swap_log(torch, cfg, sc, plan)
+    cpu_s = time.perf_counter() - t0
+    counters = {"flash_attention_fwd": lambda: fa.launches,
+                "paged_flash_decode_partials": lambda: pfd.launches,
+                "paged_flash_decode_partials_quant":
+                    lambda: pfd.quant_launches,
+                "mla_paged_decode_partials": lambda: pfd.mla_launches,
+                "mla_paged_decode_partials_quant":
+                    lambda: pfd.mla_quant_launches}
+    eng = ServingEngine(cfg, params, sc, device="cuda")
+    eng.warmup()
+    rec = watch_swaps(torch, eng)
+    log = record_dispatches(eng, counters)
+    fa.launches = pfd.launches = pfd.quant_launches = 0
+    pfd.mla_launches = pfd.mla_quant_launches = 0
+    reqs, wall = drive_plan(torch, eng, plan)
+    launches = {n: c() for n, c in counters.items()}
+    counts = swap_summary(rec)
+    kinds = {k: 0 for k in want}
+    by_kind = {k: {n: 0 for n in counters} for k in want}
+    for kind, got in log:
+        kinds[kind] += 1
+        for n in counters:
+            by_kind[kind][n] += got[n]
+        exp = {n: (cfg.n_layers if n == want[kind] else 0) for n in counters}
+        if got != exp:
+            fail(f"{tag}: a {kind} dispatch launched {got}, want {exp}")
+    st = eng.stats()
+    n_tok = sum(len(r.out_tokens) for r in reqs.values())
+    print(json.dumps({
+        "phase": "overcommit", "arch": cfg.name, "dtype": str(cfg.dtype),
+        "kv_format": kv_format, "layers": cfg.n_layers,
+        "num_pages": sc.num_pages, "requests": len(reqs), "tokens": n_tok,
+        "wall_s": wall, "stats": st, "preemption_log": rec["log"],
+        "cpu_log_equal": rec["log"] == expected, "cpu_log_s": cpu_s,
+        "schedule": counts, "snapshot_bytes": rec["nbytes"],
+        "snapshot_bytes_median": statistics.median(rec["nbytes"] or [0]),
+        "page_bytes": eng._page_nbytes,
+        "swap_out_ms_median": statistics.median(rec["out_ms"] or [0]),
+        "swap_in_ms_median": statistics.median(rec["in_ms"] or [0]),
+        "swap_out_ms": rec["out_ms"], "swap_in_ms": rec["in_ms"],
+        "restored_bitwise": rec["restored"], "dispatches": kinds,
+        "launches": launches, "launches_by_kind": by_kind,
+        "card": card}), flush=True)
+    if rec["log"] != expected:
+        fail(f"{tag}: the preemption log {rec['log']} differs from the "
+             f"one computed on the CPU {expected}")
+    for k, least in OVERCOMMIT_MIN.items():
+        if counts[k] < least:
+            fail(f"{tag}: the schedule has {counts[k]} {k}, want at least "
+                 f"{least} ({counts})")
+    for r in reqs.values():
+        if not r.done or r.failed or len(r.out_tokens) != sc.max_new_tokens:
+            fail(f"{tag}: request {r.rid}: done={r.done} failed={r.failed} "
+                 f"tokens={len(r.out_tokens)}")
+    if eng.iotlb.faults:
+        fail(f"{tag}: faults {eng.iotlb.faults}")
+    if not (eng.n_swap_ins == eng.n_preemptions == rec["restored"]):
+        fail(f"{tag}: {eng.n_swap_ins} swap-ins, {eng.n_preemptions} "
+             f"preemptions, {rec['restored']} restores checked")
+    if eng.pages_in_use() != 0:
+        fail(f"{tag}: {eng.pages_in_use()} pages still in use at the end")
+    if min(kinds.values()) < 1:
+        fail(f"{tag}: dispatch kinds {kinds}: each must run at least once")
+    del eng
+    torch.cuda.empty_cache()
+    preempted = sorted(rid for rid, r in reqs.items() if r.preempts)
+    bad_eng = ServingEngine(cfg, params, sc, device="cuda")
+    roll_restores(bad_eng)
+    bad_reqs, bad_wall = drive_plan(
+        torch, bad_eng, plan,
+        until=lambda rs: any(rid in rs and rs[rid].done for rid in preempted))
+    bad_ticks = bad_eng.tick_no
+    del bad_eng
+    torch.cuda.empty_cache()
+    checks = []
+    with torch.inference_mode():
+        for rid in preempted:
+            r, bad = reqs[rid], bad_reqs.get(rid)
+            err, tol = logit_check(r)
+            ferr, ftol = logit_check(bad) if bad and bad.done else (None,
+                                                                    None)
+            checks.append({"rid": rid, "preempts": r.preempts,
+                           "max_rel_err": err, "rel_tol": tol,
+                           "fault": ferr, "fault_tol": ftol})
+    print(json.dumps({"phase": "overcommit_check", "arch": cfg.name,
+                      "kv_format": kv_format, "fault_ticks": bad_ticks,
+                      "fault_wall_s": bad_wall, "requests": checks}),
+          flush=True)
+    for c in checks:
+        if not c["max_rel_err"] <= c["rel_tol"]:
+            fail(f"{tag}: request {c['rid']}: teacher-forced logits differ "
+                 f"by {c['max_rel_err']} of the row max (> {c['rel_tol']})")
+    if not any(c["fault"] is not None and c["fault"] > c["fault_tol"]
+               for c in checks):
+        fail(f"{tag}: the planted fault (pages restored rolled by one "
+             f"logical page) lands inside the bound on every preempted "
+             f"request ({checks}): the check cannot see it")
+    return launches
+
+
+def overcommit_phase(torch, card, gqa_cfg, gqa_params, mla_cfg, mla_params):
+    """Phase 12: ``serve_overcommit`` at full width and depth, on
+    qwen2.5-3b's bf16 pool (run A, phase 3's weights), then on its int8
+    pool and on deepseek-v2-lite-dense's latent pool (run B, phase 8's
+    weights).  Preempted requests are held as in phases 3, 10 and 8.
+    Returns each kernel's launches summed over the runs."""
+    import numpy as np
+    from repro_torch.core.pageformat import INT8
+
+    def held(plain, tol):
+        def check(r):
+            seq = r.prompt + r.out_tokens[:-1]
+            got = torch.from_numpy(np.stack(r.logits))
+            ref = plain(seq)[len(r.prompt) - 1:].float().cpu()
+            return rel_err(got, ref), tol
+        return check
+    int8_plain = kv_plain(torch, gqa_params, gqa_cfg, INT8)
+
+    def int8_check(r):
+        err, _, tol = kv_logit_check(torch, int8_plain, r, SERVE_REL_TOL_BF16)
+        return err, tol
+    gqa_want = {"fresh": "flash_attention_fwd",
+                "resumed": "paged_flash_decode_partials",
+                "decode": "paged_flash_decode_partials"}
+    runs = [
+        (gqa_cfg, gqa_params, "fp", held(
+            lambda seq: plain_forward(torch, gqa_params, gqa_cfg, seq),
+            SERVE_REL_TOL_BF16), gqa_want),
+        (gqa_cfg, gqa_params, "int8", int8_check,
+         {k: "paged_flash_decode_partials_quant" for k in gqa_want}),
+        (mla_cfg, mla_params, "fp", held(
+            lambda seq: plain_mla_forward(torch, mla_params, mla_cfg, seq),
+            SERVE_MLA_REL_TOL), dict(gqa_want,
+                                      decode="mla_paged_decode_partials"))]
+    total = {}
+    for cfg, params, fmt, check, want in runs:
+        got = serve_overcommit(torch, card, cfg, params, fmt, check, want,
+                               f"overcommit {cfg.name} {fmt}")
+        for n, v in got.items():
+            total[n] = total.get(n, 0) + v
+    return total
+
+
 def kernel_entry(name, source, replaces, launches, rec, design=None):
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + source,
@@ -2342,8 +2696,6 @@ def main() -> None:
             kv_launches[n] = kv_launches.get(n, 0) + v
         for k in gqa_kinds:
             gqa_kinds[k] += kv_kinds[k]["paged_flash_decode_partials_quant"]
-    del raw
-    torch.cuda.empty_cache()
     serve_f32(torch)
     for tag in ("w4a16", "w8a8"):
         serve_f32(torch, tag)
@@ -2363,11 +2715,12 @@ def main() -> None:
                           (mla_mod, "mla_paged_decode_partials"))
         for n, v in got.items():
             kv_launches[n] = kv_launches.get(n, 0) + v
-    del mla_params
-    torch.cuda.empty_cache()
     serve_mla_f32(torch)
     for name in ("qwen2.5-3b", "deepseek-v2-lite-dense"):
         serve_kv_f32(torch, name, INT4)
+    oc_launches = overcommit_phase(torch, card, cfg, raw, dense, mla_params)
+    del raw, mla_params
+    torch.cuda.empty_cache()
 
     for rec in (recs[0], recs[2], recs[3]):
         print(json.dumps({
@@ -2441,6 +2794,7 @@ def main() -> None:
                           "src/repro/kernels/flash_attention.py:36",
                           launches["flash_attention_fwd"], recs[0]),
              library_ratio=recs[0]["library_ratio"],
+             launches_overcommit=oc_launches["flash_attention_fwd"],
              mla_path=dict(mla_path("flash_attention_fwd", mla_recs["flash"]),
                            library_ratio=mla_recs["flash"]["library_ratio"]),
              dk32=pair(flash_recs["dk32_dv32"]),
@@ -2456,6 +2810,7 @@ def main() -> None:
                           {r: PAGED_DESIGN[r] for r in ("decode", "chunk")}),
              pages_per_split=recs[2]["shapes"]["pages_per_split"],
              ms_by_split=paged_sweep_ms("fp"),
+             launches_overcommit=oc_launches["paged_flash_decode_partials"],
              launches_by_route={
                  "decode": by_kind["decode"]["paged_flash_decode_partials"],
                  "chunk": by_kind["resumed"]["paged_flash_decode_partials"]},
@@ -2468,6 +2823,7 @@ def main() -> None:
                           "src/repro/kernels/paged_flash_decode.py:299",
                           mla_launches["mla_paged_decode_partials"],
                           mla_recs["mla_P128"], MLA_DESIGN),
+             launches_overcommit=oc_launches["mla_paged_decode_partials"],
              pages_per_split=mla_recs["mla_P128"]["shapes"][
                  "pages_per_split"],
              ms_by_split=sweep_ms("fp")),
@@ -2491,6 +2847,8 @@ def main() -> None:
                  "decode": gqa_kinds["decode"],
                  "chunk": gqa_kinds["fresh"] + gqa_kinds["resumed"]},
              launches_by_dispatch=gqa_kinds,
+             launches_overcommit=oc_launches[
+                 "paged_flash_decode_partials_quant"],
              int4=dict(numbers(q_recs["gqa_int4_sq1_ceng_bf16"]),
                        ms_by_split=paged_sweep_ms("int4")),
              resumed_int8=numbers(q_recs["gqa_int8_sq256_ceng_bf16"]),

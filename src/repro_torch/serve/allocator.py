@@ -47,6 +47,11 @@ class PageAllocator:
     def pages_in_use(self) -> int:
         return self.num_pages - len(self._free)
 
+    def logical_count(self, slot: int) -> int:
+        """Logical pages ``slot`` has mapped: the pages a whole-request
+        swap snapshots and later restores (one tier: all on the device)."""
+        return int((self.page_table[slot] >= 0).sum())
+
     def reserved_free(self) -> int:
         """Free pages not spoken for by outstanding growth reservations."""
         return len(self._free) - int(self.growth_due.sum())

@@ -38,9 +38,15 @@ class ServeConfig:
     #                                  within max_seq - max_new_tokens) are
     #                                  served by RESUMABLE chunked prefill.
     reserve_decode_pages: bool = True
-    # Admission accounts for every in-flight request's worst-case decode
-    # growth, so the pool never exhausts mid-decode (overcommit needs
-    # swap preemption, which this slice does not have).
+    # True: admission accounts for every in-flight request's worst-case
+    #   decode growth, so the pool never exhausts mid-decode.
+    # False: overcommit — admission claims only the prompt's pages and
+    #   the first decode page, and growth that finds the pool empty
+    #   triggers ``preemption``.
+    preemption: str = "swap"
+    # "swap": the lowest-priority, youngest other resident's pages go to
+    #   host memory and come back byte for byte through the swap queue;
+    # "terminate": the growing request ends with a capacity fault.
     prefix_sharing: bool = True
     # Refcounted page tables: a prompt sharing a whole-page prefix with a
     # resident request maps the resident's pages (copy-on-write at the
@@ -48,6 +54,10 @@ class ServeConfig:
     decode_sharing: bool = False
     kv_format: str = "fp"           # page storage: one of KV_FORMATS
     record_logits: bool = False     # keep per-token logits on each Request
+    swap_budget_bytes: Optional[int] = None
+    # Cap on the host bytes the swap queue holds; None = unbounded.  A
+    # swap that would pass it is denied (a ``swap_budget`` fault) and the
+    # grower takes the capacity path.
     spill_dir: Optional[str] = None
     host_pool_pages: int = 0
     spec_draft: Optional[str] = None
@@ -60,6 +70,9 @@ class ServeConfig:
             bad(field, f"= {value!r} is not served by this slice of the "
                 f"PyTorch port yet: {what} comes with ROADMAP queue 1 "
                 f"item {item}")
+        if self.swap_budget_bytes is not None and self.swap_budget_bytes <= 0:
+            bad("swap_budget_bytes", "must be positive (None = unbounded), "
+                f"got {self.swap_budget_bytes}")
         if self.max_batch <= 0:
             bad("max_batch", f"must be positive, got {self.max_batch}")
         if self.max_prompt <= 0:
@@ -73,9 +86,9 @@ class ServeConfig:
             later("temperature", self.temperature, 7, "temperature sampling")
         if not self.paged:
             later("paged", self.paged, 6, "the contiguous cache layout")
-        if not self.reserve_decode_pages:
-            later("reserve_decode_pages", self.reserve_decode_pages, 5,
-                  "overcommit with swap preemption")
+        if self.preemption not in ("swap", "terminate"):
+            bad("preemption", "must be 'swap' or 'terminate', "
+                f"got {self.preemption!r}")
         if self.kv_format not in KV_FORMATS:
             bad("kv_format", f"must be one of {KV_FORMATS}, "
                 f"got {self.kv_format!r}")
@@ -128,6 +141,7 @@ class Request:
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     failed: bool = False            # rejected by IOTLB containment
+    preempts: int = 0               # times swapped out
     logits: List[np.ndarray] = dataclasses.field(default_factory=list)
     # per-emitted-token logits rows (float32), kept when
     # ServeConfig.record_logits

@@ -32,9 +32,17 @@ kinds and every format: it treats the pool leaves (``k``/``v`` or MLA's
 ``dense`` through the packed matmul kernels.  ``stats()`` reports the kernel launches of the last
 dispatch and in total.
 
-Not in this slice (ServeConfig rejects them): swap preemption and
-overcommit, the tiered pool and oversized contexts, speculative decoding,
-decode twins, temperature sampling.
+Overcommit (``reserve_decode_pages=False``): when decode growth finds
+the pool empty, ``ServeConfig.preemption`` "swap" picks the scheduler's
+victim, copies its pages to host tensors, releases them, and parks the
+request on the swap queue, which drains before fresh admissions and
+restores the pages byte for byte into fresh ones; "terminate" ends the
+grower with a capacity fault.  ``swap_budget_bytes`` caps the queue's
+host bytes.
+
+Not in this slice (ServeConfig rejects them): swap spill and the tiered
+pool, oversized contexts, speculative decoding, decode twins,
+temperature sampling.
 """
 from __future__ import annotations
 
@@ -52,7 +60,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import Transformer, init_paged_cache
 from repro_torch.serve.allocator import PageAllocator
 from repro_torch.serve.config import Request, ServeConfig
-from repro_torch.serve.scheduler import Scheduler
+from repro_torch.serve.scheduler import Scheduler, SwappedRequest
 from repro_torch.train.step import (make_paged_chunked_prefill_step,
                                     make_paged_decode_step)
 
@@ -76,7 +84,7 @@ class RequestHandle:
 
     @property
     def status(self) -> str:
-        """'pending' | 'running' | 'done' | 'failed'."""
+        """'pending' | 'running' | 'swapped' | 'done' | 'failed'."""
         if self.req.done:
             return "failed" if self.req.failed else "done"
         return self._eng.sched.state_of(self.req)
@@ -138,7 +146,9 @@ class ServingEngine:
         self.completed: List[Request] = []
         self.peak_active = 0        # high-water concurrency
         self.peak_pages = 0         # high-water pool pages in use
-        self.n_preemptions = 0      # no swap in this slice: stays 0
+        self.n_preemptions = 0      # swap-outs
+        self.n_swap_ins = 0
+        self.n_swap_budget_denials = 0
         self.n_cow_copies = 0
         self.n_shared_admissions = 0
         self.n_dispatches = 0
@@ -147,6 +157,13 @@ class ServingEngine:
         self._prefilled_since_step = False   # one prefill dispatch per tick
         self.tick_no = 0            # the serving clock (deadline ledger)
         self._closed = False        # set by drain(): no further submits
+        # host bytes one swapped page occupies, for the swap budget: every
+        # pool leaf, scales included.  No family the port serves keeps
+        # per-slot state, so a snapshot holds pages only.
+        self._page_nbytes = sum(leaf.numel() * leaf.element_size()
+                                // leaf.shape[1]
+                                for leaf in self._pool_leaves())
+        self._slot_state_nbytes = 0
 
     # -- views ----------------------------------------------------------------
     @property
@@ -155,6 +172,11 @@ class ServingEngine:
 
     def pages_in_use(self) -> int:
         return self.alloc.pages_in_use()
+
+    def _pool_leaves(self) -> List[torch.Tensor]:
+        """Every pool leaf in the reference's flattening order (stages in
+        order, keys sorted), the order of a snapshot's ``pool_rows``."""
+        return [stage[k] for stage in self.cache for k in sorted(stage)]
 
     def pool_bytes_per_shard(self) -> int:
         """Device bytes of page-pool state one pool shard holds: every
@@ -166,6 +188,8 @@ class ServingEngine:
         return {"ticks": self.tick_no, "peak_active": self.peak_active,
                 "peak_pages": self.peak_pages,
                 "n_preemptions": self.n_preemptions,
+                "n_swap_ins": self.n_swap_ins,
+                "n_swap_budget_denials": self.n_swap_budget_denials,
                 "n_cow_copies": self.n_cow_copies,
                 "n_shared_admissions": self.n_shared_admissions,
                 "n_dispatches": self.n_dispatches,
@@ -218,11 +242,16 @@ class ServingEngine:
         if not req.prompt:
             self._reject(req)
             return False, no_share
-        demand = self._max_pages(req)
+        demand = (self._max_pages(req) if self.sc.reserve_decode_pages
+                  else self._claim_count(req))
         if demand > self.num_pages:
             self._fault_reject(req, "capacity", slot * self._slot_span,
                                demand * self.sc.page_size)
             return False, no_share
+        if self.sched.swapped:
+            # preempted work drains first: fresh admissions would take
+            # the pages the swap queue waits for
+            return _DEFER, no_share
         share = (self.sched.shared_prefix(req.prompt, self.sc.page_size)
                  if self.sc.prefix_sharing else no_share)
         demand -= share[1] // self.sc.page_size    # shared pages are free
@@ -256,7 +285,8 @@ class ServingEngine:
             if not self.alloc.alloc(slot, j):
                 raise RuntimeError("free-page count was vetted in "
                                    "_admissible")
-        self.alloc.growth_due[slot] = self._max_pages(req) - needed
+        if self.sc.reserve_decode_pages:
+            self.alloc.growth_due[slot] = self._max_pages(req) - needed
         for j in range(needed):
             if not self.alloc.check_write(slot, j * ps, ps, strict=False):
                 raise IotlbFault("miss",
@@ -265,7 +295,9 @@ class ServingEngine:
 
     def _admission_wave(self) -> int:
         """Fill free slots in the pending queue's order, then one prefill
-        dispatch covering new and resumed slots."""
+        dispatch covering new and resumed slots.  Swapped requests
+        re-enter first."""
+        self._swap_in_ready()
         placed: List[tuple] = []
         copies: List[Tuple[int, int]] = []
         try:
@@ -422,21 +454,113 @@ class ServingEngine:
                 leaf[:, dst] = leaf[:, src]
         self.n_cow_copies += len(copies)
 
+    # -- device <-> host page movement --------------------------------------
+    def _swap_out(self, slot: int) -> None:
+        """Preempt ``slot``: copy its pages to host tensors, release them,
+        and park the request on the swap queue.  The copy to the host is
+        synchronous, so it has landed before ``release_slot`` hands the
+        pages to the next writer; a page the victim shares keeps its
+        other references and bytes."""
+        meta = self.sched.slots[slot]
+        req = meta.req
+        n_logical = self.alloc.logical_count(slot)
+        phys = torch.from_numpy(
+            self.alloc.page_table[slot, :n_logical].astype(np.int64)
+        ).to(self.device)
+        pool_rows = [leaf[:, phys].cpu() for leaf in self._pool_leaves()]
+        self.sched.swapped.append(SwappedRequest(
+            req=req, prefill_done=meta.prefill_done, order=meta.order,
+            pos=int(self.positions[slot]),
+            last_token=int(self.last_token[slot]),
+            n_pages=n_logical, n_max=self._max_pages(req),
+            growth_due=int(self.alloc.growth_due[slot]),
+            pool_rows=pool_rows, slot_rows=[],
+            nbytes=sum(t.numel() * t.element_size() for t in pool_rows)))
+        self.alloc.release_slot(slot)
+        self.sched.release(slot)
+        req.preempts += 1
+        self.n_preemptions += 1
+
+    def _swap_in(self, slot: int, sw: SwappedRequest) -> None:
+        """Re-admit a swapped request: fresh private pages, its bytes
+        back, and its admission order, position and last token."""
+        for j in range(sw.n_pages):
+            if not self.alloc.alloc(slot, j):
+                raise RuntimeError("swap-in pages were vetted in "
+                                   "_swap_in_ready")
+        phys = torch.from_numpy(
+            self.alloc.page_table[slot, :sw.n_pages].astype(np.int64)
+        ).to(self.device)
+        for leaf, rows in zip(self._pool_leaves(), sw.pool_rows):
+            leaf[:, phys] = rows.to(self.device)
+        if self.sc.reserve_decode_pages:
+            self.alloc.growth_due[slot] = sw.growth_due
+        self.positions[slot] = sw.pos
+        self.last_token[slot] = sw.last_token
+        self.sched.place(slot, sw.req, prefill_done=sw.prefill_done,
+                         order=sw.order)
+        self.peak_active = max(self.peak_active, len(self.sched.active()))
+        self.n_swap_ins += 1
+
+    def _swap_in_ready(self) -> None:
+        """Re-admit swapped requests (FIFO) while slots and pages allow:
+        the mapped pages to restore, plus one growth page of headroom so
+        the next decode tick makes progress instead of thrashing."""
+        while self.sched.swapped and self.sched.free_slots():
+            slot = self.sched.free_slots()[0]
+            sw = self.sched.swapped[0]
+            need = sw.n_pages + (sw.growth_due if
+                                 self.sc.reserve_decode_pages
+                                 else int(sw.n_pages < sw.n_max))
+            if need > self.alloc.reserved_free():
+                break
+            self.sched.swapped.pop(0)
+            self._swap_in(slot, sw)
+
     # -- steady-state decode tick -------------------------------------------
     def _grow_pages(self, active: List[int]) -> None:
-        """Map the page covering each active slot's next write row.  The
-        growth reservation guarantees a free page; a failure here is an
-        accounting fault that ends the request (strict mode raises)."""
+        """Map the page covering each active slot's next write row.
+        Exhaustion, reachable only under overcommit, triggers
+        ``ServeConfig.preemption``: swap out the scheduler's victim and
+        retry, or, with no viable victim or under "terminate", a capacity
+        fault that ends the request with its partial output (strict mode
+        raises)."""
         ps = self.sc.page_size
         cow: List[Tuple[int, int]] = []
         for i in active:
+            meta = self.sched.slots[i]
+            if meta is None:        # swapped out by an earlier iteration
+                continue
             wr = int(self.positions[i])     # this tick's cache write row
             j = wr // ps
             if self.alloc.page_table[i, j] < 0:
-                if not self.alloc.alloc(i, j):
+                grown = self.alloc.alloc(i, j)
+                while not grown and self.sc.preemption == "swap":
+                    v = self.sched.victim(exclude=i)
+                    if v is None or not self._swappable(v):
+                        break
+                    if self.sched.slots[v].req.priority > \
+                            meta.req.priority:
+                        # every other resident outranks the grower: park
+                        # the grower itself, never higher-priority work;
+                        # one that cannot be parked takes the capacity
+                        # path
+                        if not self._swap_fits_budget(i):
+                            self._deny_swap_budget(i)
+                        elif self._swappable(i):
+                            self._swap_out(i)
+                        break
+                    if not self._swap_fits_budget(v):
+                        self._deny_swap_budget(v)
+                        break
+                    self._swap_out(v)
+                    grown = self.alloc.alloc(i, j)
+                if self.sched.slots[i] is None:
+                    continue            # the grower parked itself
+                if not grown:
                     self.iotlb.faults.append(FaultRecord(
                         "capacity", i * self._slot_span + wr, 1, True))
-                    req = self.sched.slots[i].req
+                    req = meta.req
                     req.failed = True
                     self._finish(i)
                     if self.sc.strict_iotlb:
@@ -455,6 +579,33 @@ class ServingEngine:
             self.alloc.check_write(i, wr, 1, strict=self.sc.strict_iotlb)
         self._apply_copies(cow)
 
+    def _swappable(self, slot: int) -> bool:
+        """Whether a preempted ``slot`` could be re-admitted later: its
+        mapped pages, plus a growth page if it is not fully grown, fit
+        the pool."""
+        meta = self.sched.slots[slot]
+        n_logical = self.alloc.logical_count(slot)
+        return n_logical + int(n_logical < self._max_pages(meta.req)) \
+            <= self.num_pages
+
+    def _swap_fits_budget(self, slot: int) -> bool:
+        """Whether swapping ``slot`` keeps the swap queue within
+        ``ServeConfig.swap_budget_bytes``."""
+        budget = self.sc.swap_budget_bytes
+        if budget is None:
+            return True
+        est = self.alloc.logical_count(slot) * self._page_nbytes \
+            + self._slot_state_nbytes
+        return self.sched.swap_bytes() + est <= budget
+
+    def _deny_swap_budget(self, slot: int) -> None:
+        """Record a swap denied by the byte budget: the grower takes the
+        capacity path instead of the host holding unbounded bytes."""
+        self.iotlb.faults.append(FaultRecord(
+            "swap_budget", slot * self._slot_span,
+            self.alloc.logical_count(slot) * self.sc.page_size, True))
+        self.n_swap_budget_denials += 1
+
     def step(self):
         """One engine tick after admission: advance unfinished prefill by
         one chunk (unless this tick's admission wave already did), then one
@@ -464,7 +615,9 @@ class ServingEngine:
         self._prefilled_since_step = False
         runnable = self.sched.decode_slots()
         self._grow_pages(runnable)
-        active = [i for i in self.sched.decode_slots() if i in set(runnable)]
+        runnable = set(runnable)
+        active = [i for i in self.sched.decode_slots()
+                  if i in runnable]     # growth may have swapped slots
         if not active:
             return
         mask_np = np.zeros((self.sc.max_batch,), bool)

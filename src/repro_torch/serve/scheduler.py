@@ -1,10 +1,11 @@
 """Serving scheduler: pending queue, admission order, chunk budgets,
-prefix matching and the deadline ledger.
+preemption victims, the swap queue, prefix matching and the deadline
+ledger.
 
 A transliteration of ``repro.serve.scheduler`` (the POLICY layer; the
 allocator accounts, the engine executes), so that the port's decisions
-are the reference's exactly.  Swap queues, victims, twin ledgers and the
-tiered pool's coldness order are not in this slice.
+are the reference's exactly.  Twin ledgers and the tiered pool's
+coldness order are not in this slice.
 
   * ``pop_pending``: highest ``Request.priority`` first, FIFO within a
     class via the stamped ``submit_seq``; a transiently unadmittable head
@@ -12,6 +13,9 @@ tiered pool's coldness order are not in this slice.
   * ``prefill_plan``: the next ``chunk`` unfilled prompt tokens of every
     slot still owing prefill (resumable chunked prefill);
   * ``decode_slots``: slots whose prompt is complete;
+  * ``victim``: whom overcommit preempts, the lowest-priority resident,
+    youngest (largest admission ``order``) within a class; the preempted
+    request waits on ``swapped`` (host bytes: ``swap_bytes``);
   * ``shared_prefix``: the resident request with the longest materialized
     common prompt prefix, at whole-page granularity.
 """
@@ -19,7 +23,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 from repro_torch.serve.config import Request
 
@@ -29,16 +33,41 @@ class SlotMeta:
     """Scheduler-side state of one occupied slot."""
     req: Request
     prefill_done: int           # prompt rows materialized so far
+    order: int                  # admission sequence number (larger=younger)
 
     @property
     def prefilled(self) -> bool:
         return self.prefill_done >= len(self.req.prompt)
 
 
+@dataclasses.dataclass
+class SwappedRequest:
+    """A preempted request parked in host memory until re-admission.
+    ``pool_rows`` holds one host tensor per pool leaf, in the reference's
+    leaf order (stages in order, keys sorted), each (layers, n_pages,
+    page_size, ...): the request's pages byte for byte.  The port serves
+    no per-slot state (``slot_rows`` stays empty) and has no spill tier
+    (``spill_step`` stays None)."""
+    req: Request
+    prefill_done: int
+    order: int
+    pos: int                    # next cache write row (decode position)
+    last_token: int
+    n_pages: int                # mapped logical pages at swap-out
+    n_max: int                  # worst-case pages it could ever need
+    growth_due: int
+    pool_rows: List[Any]
+    slot_rows: List[Any]
+    nbytes: int = 0             # host bytes this snapshot occupies
+    spill_step: Optional[int] = None
+
+
 class Scheduler:
     def __init__(self, max_batch: int, chunk: int):
         self.chunk = chunk
         self.slots: List[Optional[SlotMeta]] = [None] * max_batch
+        self.swapped: List[SwappedRequest] = []
+        self._order = 0
         # kept sorted by (-priority, submit_seq)
         self._pending: List[Request] = []
         self._pending_keys: List[Tuple[int, int]] = []
@@ -72,13 +101,18 @@ class Scheduler:
         self._enqueue(req)
 
     def has_work(self) -> bool:
-        return bool(self._pending or any(s is not None for s in self.slots))
+        return bool(self._pending or self.swapped
+                    or any(s is not None for s in self.slots))
 
     def state_of(self, req: Request) -> str:
-        """'running' | 'pending' | 'unknown' for a live request."""
+        """'running' | 'swapped' | 'pending' | 'unknown' for a live
+        request."""
         for meta in self.slots:
             if meta is not None and meta.req is req:
                 return "running"
+        for sw in self.swapped:
+            if sw.req is req:
+                return "swapped"
         for r in self._pending:
             if r is req:
                 return "pending"
@@ -108,6 +142,17 @@ class Scheduler:
         req.deadline_miss = True
         self.deadline_misses += 1
 
+    # -- swap accounting -----------------------------------------------------
+    def swap_bytes(self) -> int:
+        """Host bytes currently parked on the swap queue."""
+        return sum(sw.nbytes for sw in self.swapped)
+
+    def next_order(self) -> int:
+        """Claim the next admission-order stamp."""
+        order = self._order
+        self._order += 1
+        return order
+
     # -- slot table ---------------------------------------------------------
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
@@ -115,8 +160,13 @@ class Scheduler:
     def active(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is not None]
 
-    def place(self, slot: int, req: Request, prefill_done: int = 0) -> None:
-        self.slots[slot] = SlotMeta(req=req, prefill_done=prefill_done)
+    def place(self, slot: int, req: Request, prefill_done: int = 0,
+              order: Optional[int] = None) -> None:
+        """Occupy ``slot``; a swapped-in request keeps its ``order``."""
+        if order is None:
+            order = self.next_order()
+        self.slots[slot] = SlotMeta(req=req, prefill_done=prefill_done,
+                                    order=order)
 
     def release(self, slot: int) -> None:
         self.slots[slot] = None
@@ -138,6 +188,19 @@ class Scheduler:
     def decode_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots)
                 if s is not None and s.prefilled]
+
+    # -- preemption policy --------------------------------------------------
+    def victim(self, exclude: int) -> Optional[int]:
+        """Preemption victim other than ``exclude``: the lowest-priority
+        resident, youngest within a class, or None."""
+        best, best_key = None, None
+        for i, meta in enumerate(self.slots):
+            if meta is None or i == exclude:
+                continue
+            key = (meta.req.priority, -meta.order)
+            if best_key is None or key < best_key:
+                best, best_key = i, key
+        return best
 
     # -- prefix sharing -----------------------------------------------------
     def shared_prefix(self, prompt: List[int],
