@@ -126,6 +126,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
       logical page, run until its first preempted request completes,
       must land outside the bound there.  Bytes per snapshot and the
       swap-out / swap-in times are printed beside the card.
+  13. the dense arch files at full width and depth, after every earlier
+      phase's weights are released: qwen3-8b (36 layers, H 32 / KV 8,
+      qk_norm, its q_norm / k_norm drawn with QK_NORM_SPREAD from a seeded
+      generator) on a bf16 pool (phase 3's checks) and on an int8 pool
+      (phase 10's), then yi-34b (60 layers, d 7168, H 56 / KV 8) in bf16
+      and the same weights packed in place to w4a16
+      (``quantize_for_serving(..., consume=True)``), each with phase 3's
+      traffic: launches per dispatch as in phases 3 and 10, the two
+      requests' teacher-forced logits within SERVE_REL_TOL_BF16 (bf16,
+      w4a16) or the floor-based bound (int8), and qwen3-8b's planted
+      fault (q_norm and k_norm exchanged in the plain forward)
+      QK_FAULT_MARGIN outside each bound.  The weights', the pool's and
+      the card's bytes and the peak allocation are printed for each run.
 
 Phase 2 also holds the MLA path's kernels (phase 2b): the flash forward
 at q/k 192 / v 128 on a fresh 256-token chunk (KV = H = 16), the paged
@@ -142,7 +155,13 @@ in one Timer, and held at every MLA_EDGES case (P 64, 128 and 256; page
 within MLA_EDGE_TOL_BF16, which the plain version with the k_rope half
 left out of the score must break in every case, and a causal limit one
 key off in every case but the three of MLA_SHIFT_BLIND, every quantized
-case bit for bit the fp route on its pool dequantized.  Phase 2c holds the quantized kernels,
+case bit for bit the fp route on its pool dequantized.  Phase 2d
+(``group_checks``) runs the GQA kernels at the group sizes of phase 13's
+models (GROUP_HEADS: H 32 / KV 8 and H 56 / KV 8, dk = dv = 128): every
+FLASH_EDGES case, every PAGED_EDGES case on fp, int8 and int4 pools under
+the same bounds and faults, the engine's calls timed, the decode route's
+sweep over splits, and the weight-only matmul at yi-34b's MLP widths
+(MM_SHAPES_YI, w4, M 8 and 2048).  Phase 2c holds the quantized kernels,
 at int8 and int4, bf16 and float32: the quantized paged partials at
 qwen2.5-3b's widths (P 128) at decode and on a resumed 256-row chunk,
 at the engine's split and at 1, 2 and 3 pages a split; the quantized
@@ -163,8 +182,8 @@ case records that comparison.  The engine's choices are timed in bf16.
 
 The second-to-last line is a JSON object listing the ported kernels; the
 last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
-``--kernels-only`` stops after the kernel checks (phases 1, 2, 2b, 2c
-and 5).  ``--sweeps-only`` runs the build, the paged decode sweep, the
+``--kernels-only`` stops after the kernel checks (phases 1, 2, 2b, 2c,
+2d and 5).  ``--sweeps-only`` runs the build, the paged decode sweep, the
 MLA sweep and the MLA_EDGES cases alone, at explicit pages a split: it
 is how an earlier tree's readings behind the sweeps and
 MLA_EDGE_TOL_BF16 are taken (a copy of this script in a checkout of
@@ -236,6 +255,17 @@ SERVE_MLA_REL_TOL = 5e-2
 # teacher-forced logits, 36 bf16 layers: |engine - plain| <= this share of
 # the row's largest |logit| (bf16 keeps ~3 significant digits per op)
 SERVE_REL_TOL_BF16 = 5e-2
+# phase 13's qwen3-8b: its q_norm / k_norm weights, which the init leaves
+# at ones (where exchanging the two, or normalizing after RoPE, changes
+# nothing), are drawn as exp(QK_NORM_SPREAD * N(0, 1)) from a seeded
+# generator.  The planted fault, the plain forward with q_norm and k_norm
+# exchanged (RoPE between the norm and the score makes the exchange
+# visible), must land QK_FAULT_MARGIN times outside each logit bound.  The
+# spread trades the two: a wider one moves the faulty logits further, but
+# sharpens attention until bf16 rounding noise alone nears the bound
+# (PERF.md §6 reads the margin on the card)
+QK_NORM_SPREAD = 0.25
+QK_FAULT_MARGIN = 1.3
 # integer formats re-round every activation row to a few bits, so a
 # difference of one ulp turns into a whole quantization step (1/127 of
 # the row's absmax at a8) wherever it crosses a rounding boundary, and
@@ -428,6 +458,15 @@ PAGED_EDGES_PS = (16, 32)
 # pages a split the paged kernel's decode route is timed at, in one Timer
 # (qwen2.5-3b's decode: B 8, H 16, KV 2, dh 128, P 128, page 16)
 PAGED_SWEEP_C = (1, 2, 4, 8)
+# (H, KV) of the other GQA configs served (phase 13), at dh 128: qwen3-8b
+# (G 4) and yi-34b (G 7, whose query heads end partway through the
+# kernels' 16-row tiles).  Phase 2d runs every FLASH_EDGES case, every
+# PAGED_EDGES case on fp, int8 and int4 pools, and the engine's calls at
+# each (a resumed 256-row chunk takes 2 splits at H 32, 1 of all 128 pages
+# at H 56)
+GROUP_HEADS = {"qwen3-8b": (32, 8), "yi-34b": (56, 8)}
+# (K, N) of yi-34b's w_up and w_down, for the weight-only kernel at w4
+MM_SHAPES_YI = ((7168, 20480), (20480, 7168))
 # MLA decode edge cases, untimed, in bf16 on fp, int8 and int4 latent
 # pools (mla_case's pool: a hole, a page past its slot's position, an
 # inactive slot, last pages partly filled): P pages a slot, page sizes,
@@ -489,6 +528,13 @@ def check_flash(torch, timer, dtype, B=8, S=256, H=16, KV=2, dh=128,
     return rec
 
 
+def flash_edge_checks(torch, timer, H=16, KV=2, dh=128, dv=None):
+    """The bf16 flash route at every FLASH_EDGES shape; untimed."""
+    return {f"B{b}_Sq{sq}_kv{kvv}": check_flash(
+        torch, timer, torch.bfloat16, B=b, S=sq, H=H, KV=KV, dh=dh, dv=dv,
+        kv_valid=kvv, timed=False) for b, sq, kvv in FLASH_EDGES}
+
+
 def flash_checks(torch, timer):
     """The bf16 flash route at every HEAD_DIMS pair: the engine's chunk
     (B 8, 256 rows, H 16, KV 2; KV = H = 16 at MLA's 192 / 128), timed,
@@ -499,10 +545,9 @@ def flash_checks(torch, timer):
         kv = 16 if dk != dv else 2
         recs[f"dk{dk}_dv{dv}"] = check_flash(torch, timer, torch.bfloat16,
                                              KV=kv, dh=dk, dv=dv)
-        for b, sq, kvv in FLASH_EDGES:
-            recs[f"dk{dk}_dv{dv}_B{b}_Sq{sq}_kv{kvv}"] = check_flash(
-                torch, timer, torch.bfloat16, B=b, S=sq, KV=kv, dh=dk, dv=dv,
-                kv_valid=kvv, timed=False)
+        for key, rec in flash_edge_checks(torch, timer, KV=kv, dh=dk,
+                                          dv=dv).items():
+            recs[f"dk{dk}_dv{dv}_{key}"] = rec
     return recs
 
 
@@ -584,8 +629,8 @@ def check_paged(torch, timer, dtype, Sq, B=8, H=16, KV=2, dh=128, ps=16,
                                           pages_per_split=c)
     want = pfd.paged_flash_decode_partials_plain(kp, vp, q, tbl, qpos, kvv, c)
     torch.cuda.synchronize()
-    name = f"paged partials Sq={Sq} dk {dh} dv {dv} ps {ps} c {c} " \
-        f"odd {odd} {dtype}"
+    name = f"paged partials Sq={Sq} H={H} KV={KV} dk {dh} dv {dv} ps {ps} " \
+        f"c {c} odd {odd} {dtype}"
     # skipped splits, and query rows that see no key in their split
     exact, skipped = identities_exact(got, want)
     if odd and not bool(skipped[-1].all()):
@@ -661,22 +706,41 @@ def edge_summary(phase, edges):
             "tol": PAGED_EDGE_TOL_BF16}
 
 
-def paged_edge_checks(torch, timer):
-    """The bf16 paged partials at every PAGED_EDGES case and HEAD_DIMS
-    pair, on paged_case's odd pool; untimed."""
-    from repro_torch.kernels.paged_flash_decode import HEAD_DIMS
+def paged_edge_checks(torch, timer, H=16, KV=2, dh=128, dv=None, fmt=None):
+    """The bf16 paged partials at every PAGED_EDGES case on paged_case's
+    odd pool (with ``fmt``: quantized on the card, ``check_paged_quant``
+    at dh 128), each within PAGED_EDGE_TOL_BF16 with the PAGED_SHIFT fault
+    outside; untimed."""
     recs = {}
-    for dk, dv in HEAD_DIMS:
-        kv = 16 if dk != dv else 2
-        for ps in PAGED_EDGES_PS:
-            for sq in PAGED_EDGES_SQ:
-                for c in PAGED_EDGES_C:
-                    recs[f"dk{dk}_dv{dv}_ps{ps}_sq{sq}_c{c or 'eng'}"] = \
-                        check_paged(torch, timer, torch.bfloat16, sq, KV=kv,
-                                    dh=dk, dv=dv, ps=ps, P=2048 // ps, c=c,
-                                    odd=True, edge=True, timed=False)
+    for ps in PAGED_EDGES_PS:
+        for sq in PAGED_EDGES_SQ:
+            for c in PAGED_EDGES_C:
+                recs[f"ps{ps}_sq{sq}_c{c or 'eng'}"] = check_paged(
+                    torch, timer, torch.bfloat16, sq, H=H, KV=KV, dh=dh,
+                    dv=dv, ps=ps, P=2048 // ps, c=c, odd=True, edge=True,
+                    timed=False) if fmt is None else check_paged_quant(
+                    torch, timer, torch.bfloat16, fmt, sq, c, ps=ps,
+                    edge=True, H=H, KV=KV)
         torch.cuda.empty_cache()
     return recs
+
+
+def quant_edge_summary(phase, edges, others, **extra):
+    """Prints ``edge_summary`` of the quantized PAGED_EDGES records
+    ``edges``, with, by route, whether every quantized GQA record of
+    ``edges`` and ``others`` on a tensor-core route equals, bit for bit,
+    the fp kernel's same route on its pool dequantized.  Returns the keys
+    of the records that do not."""
+    tc = {k: r for k, r in list(others.items()) + list(edges.items())
+          if r["name"] == "paged_flash_decode_partials_quant"
+          and r["route"] in ("chunk", "decode")}
+    print(json.dumps(dict(edge_summary(phase, edges), **extra, **{
+        f"{route}_fp_route_bitwise": {
+            "cases": sum(r["route"] == route for r in tc.values()),
+            "all": all(r["fp_route_bitwise"] for r in tc.values()
+                       if r["route"] == route)}
+        for route in ("chunk", "decode")})), flush=True)
+    return [k for k, r in tc.items() if not r["fp_route_bitwise"]]
 
 
 def paged_bound(tbl_np, qpos_np, fill, ps, c, H, KV, dh, dv, el,
@@ -1073,25 +1137,25 @@ def quant_gqa_case(torch, dtype, fmt, Sq, B=8, H=16, KV=2, dh=128, ps=16,
 
 
 def check_paged_quant(torch, timer, dtype, fmt, Sq, c=None, timed=False,
-                      ps=16, edge=False, fresh=False):
-    """The quantized GQA kernel at qwen2.5-3b's widths, 2048 / ps pages a
-    slot, on quant_gqa_case's pool; ``c`` pages a split (default: the
-    engine's choice, ``paged_split``).  Each case is held against the
-    plain version and its skipped splits and rows that see no key to the
-    exact identities; a bf16 record (chunk or decode route) says whether
-    it equals, bit for bit, the fp kernel's same route on the same pool
-    dequantized to ``dtype`` by ``PageFormat.dequantize``, which
-    quant_kernel_checks requires.  ``edge``: held to PAGED_EDGE_TOL_BF16,
-    which the plain version with every active row seeing one key more (a
-    chunk) or fewer (decode), PAGED_SHIFT, must break (a PAGED_EDGES
-    case, or the fresh chunk).  ``fresh``: quant_gqa_case's fresh
-    chunk."""
+                      ps=16, edge=False, fresh=False, H=16, KV=2):
+    """The quantized GQA kernel at qwen2.5-3b's widths (or ``H`` / ``KV``
+    heads at dh 128), 2048 / ps pages a slot, on quant_gqa_case's pool;
+    ``c`` pages a split (default: the engine's choice, ``paged_split``).
+    Each case is held against the plain version and its skipped splits
+    and rows that see no key to the exact identities; a bf16 record
+    (chunk or decode route) says whether it equals, bit for bit, the fp
+    kernel's same route on the same pool dequantized to ``dtype`` by
+    ``PageFormat.dequantize``, which quant_kernel_checks requires.
+    ``edge``: held to PAGED_EDGE_TOL_BF16, which the plain version with
+    every active row seeing one key more (a chunk) or fewer (decode),
+    PAGED_SHIFT, must break (a PAGED_EDGES case, or the fresh chunk).
+    ``fresh``: quant_gqa_case's fresh chunk."""
     from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.models.attention import _combine_page_partials
-    B, H, KV, dh, P = 8, 16, 2, 128, 2048 // ps
+    B, dh, P = 8, 128, 2048 // ps
     kq, vq, ks, vs, q, tbl, qpos, kvv, tbl_np, qpos_np, fill = \
-        quant_gqa_case(torch, dtype, fmt, Sq, ps=ps, P=P, seed=40 + Sq,
-                       fresh=fresh)
+        quant_gqa_case(torch, dtype, fmt, Sq, H=H, KV=KV, ps=ps, P=P,
+                       seed=40 + Sq, fresh=fresh)
     if c is None:
         c = paged_split(B, Sq, H, KV, P, ps, dh)
     kw = dict(k_scale=ks, v_scale=vs, bits=fmt.bits)
@@ -1107,8 +1171,8 @@ def check_paged_quant(torch, timer, dtype, fmt, Sq, c=None, timed=False,
             fmt.dequantize(kq, ks, dtype), fmt.dequantize(vq, vs, dtype), q,
             tbl, qpos, kvv, pages_per_split=c)
     torch.cuda.synchronize()
-    name = f"quant paged partials {fmt.name} Sq={Sq} ps={ps} c={c} " \
-        f"fresh={fresh} {dtype} ({route} route)"
+    name = f"quant paged partials {fmt.name} Sq={Sq} H={H} KV={KV} " \
+        f"ps={ps} c={c} fresh={fresh} {dtype} ({route} route)"
     exact, skipped = identities_exact(got, want)
     if not fresh and not bool(skipped[-1].all()):
         fail(f"{name}: the inactive slot's plain partials are not skipped")
@@ -1246,24 +1310,11 @@ def quant_kernel_checks(torch, timer):
         recs[f"gqa_{fmt.name}_fresh_sq256_ceng_bf16"] = check_paged_quant(
             torch, timer, torch.bfloat16, fmt, 256, timed=True, edge=True,
             fresh=True)
-        for ps in PAGED_EDGES_PS:
-            for sq in PAGED_EDGES_SQ:
-                for c in PAGED_EDGES_C:
-                    edges[f"gqa_{fmt.name}_ps{ps}_sq{sq}_c{c or 'eng'}"] = \
-                        check_paged_quant(torch, timer, torch.bfloat16, fmt,
-                                          sq, c, ps=ps, edge=True)
-        torch.cuda.empty_cache()
+        for key, rec in paged_edge_checks(torch, timer, fmt=fmt).items():
+            edges[f"gqa_{fmt.name}_{key}"] = rec
     for rec in list(recs.values()) + list(edges.values()):
         print(json.dumps(dict(phase="kernel_quant", **rec)), flush=True)
-    tc = {k: r for k, r in list(recs.items()) + list(edges.items())
-          if k.startswith("gqa_") and r["route"] in ("chunk", "decode")}
-    print(json.dumps(dict(edge_summary("quant_paged_edges", edges), **{
-        f"{route}_fp_route_bitwise": {
-            "cases": sum(r["route"] == route for r in tc.values()),
-            "all": all(r["fp_route_bitwise"] for r in tc.values()
-                       if r["route"] == route)}
-        for route in ("chunk", "decode")})), flush=True)
-    apart = [k for k, r in tc.items() if not r["fp_route_bitwise"]]
+    apart = quant_edge_summary("quant_paged_edges", edges, recs)
     # the MLA kernel's bf16 route on a quantized pool, likewise
     apart += [k for k, r in recs.items() if k.startswith("mla_")
               and r["route"] == "bf16" and not r["fp_route_bitwise"]]
@@ -1271,6 +1322,74 @@ def quant_kernel_checks(torch, timer):
         fail(f"quantized tensor-core route differs from the fp route on the "
              f"dequantized pool: {apart}")
     return recs
+
+
+# ---------------------------------------------------------------------------
+# Phase 2d: the kernels at the group sizes and widths of phase 13's models.
+# ---------------------------------------------------------------------------
+
+def group_checks(torch, timer):
+    """Phase 2d: the attention kernels at each GROUP_HEADS (H, KV), dk = dv
+    = 128, and the weight-only matmul at yi-34b's MLP widths.  Untimed:
+    phase 2's and 2c's edge cases (``flash_edge_checks``,
+    ``paged_edge_checks`` on fp, int8 and int4 pools) under the same
+    tolerances and faults.  Timed, beside their bounds: the flash forward
+    on the engine's 256-row chunk; the paged partials at decode and on a
+    resumed 256-row chunk, the quantized ones on a resumed and a fresh
+    chunk, all at the engine's split; the decode route at each
+    PAGED_SWEEP_C split on fp, int8 and int4 pools (``paged_sweep``);
+    ``wo_matmul`` w4 on w_up and w_down at M in MM_ROWS.  Returns the
+    records by arch; prints the seconds it took."""
+    from repro_torch.core.pageformat import INT4, INT8
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    out = {}
+    for arch, (H, KV) in GROUP_HEADS.items():
+        recs = {"flash": check_flash(torch, timer, bf16, H=H, KV=KV),
+                "decode": check_paged(torch, timer, bf16, 1, H=H, KV=KV),
+                "resumed": check_paged(torch, timer, bf16, 256, H=H, KV=KV)}
+        for fmt in (INT8, INT4):
+            recs[f"resumed_{fmt.name}"] = check_paged_quant(
+                torch, timer, bf16, fmt, 256, timed=True, H=H, KV=KV)
+            recs[f"fresh_{fmt.name}"] = check_paged_quant(
+                torch, timer, bf16, fmt, 256, timed=True, edge=True,
+                fresh=True, H=H, KV=KV)
+        fedges = flash_edge_checks(torch, timer, H=H, KV=KV)
+        edges = paged_edge_checks(torch, timer, H=H, KV=KV)
+        qedges = {f"{fmt.name}_{key}": rec for fmt in (INT8, INT4)
+                  for key, rec in paged_edge_checks(torch, timer, H=H, KV=KV,
+                                                    fmt=fmt).items()}
+        for key, rec in list(recs.items()) + list(fedges.items()) + \
+                list(edges.items()) + list(qedges.items()):
+            print(json.dumps(dict(phase="kernel_group", arch=arch, case=key,
+                                  **rec)), flush=True)
+        print(json.dumps(dict(edge_summary(f"paged_edges {arch}", edges),
+                              heads=[H, KV])), flush=True)
+        print(json.dumps({"phase": f"flash_edges {arch}", "heads": [H, KV],
+                          "cases": len(fedges), "max_abs_err": max(
+                              r["max_abs_err"] for r in fedges.values()),
+                          "tol": FLASH_TOL_BF16}), flush=True)
+        apart = quant_edge_summary(f"quant_paged_edges {arch}", qedges, recs,
+                                   heads=[H, KV])
+        if apart:
+            fail(f"{arch}: quantized tensor-core route differs from the fp "
+                 f"route on the dequantized pool: {apart}")
+        sweep = paged_sweep(torch, timer, H=H, KV=KV)
+        verdict = sweep_verdict(sweep, paged_split(8, 1, H, KV, 128, 16, 128))
+        print(json.dumps({"phase": "paged_split_verdict", "arch": arch,
+                          "pools": verdict}), flush=True)
+        out[arch] = dict(recs, sweep=sweep)
+    out["yi-34b"]["wo_matmul"] = {
+        f"M{m}_K{k}_N{n}": check_matmul(torch, timer, "wo_matmul", m, k, n,
+                                        16, 4, seed=900 + i)
+        for i, (m, (k, n)) in enumerate((m, kn) for m in MM_ROWS
+                                        for kn in MM_SHAPES_YI)}
+    for key, rec in out["yi-34b"]["wo_matmul"].items():
+        print(json.dumps(dict(phase="kernel_group", arch="yi-34b", case=key,
+                              **rec)), flush=True)
+    print(json.dumps({"phase": "group_checks",
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1440,13 +1559,15 @@ def widened_attention(q, k, v):
 def plain_forward(torch, params, cfg, tokens, attention=None, fault=None):
     """Contiguous forward of one sequence with the plain attention and,
     for packed weights, the plain matmuls (no pool, no page table, no
-    kernel): (S, padded_vocab) logits.  ``attention`` replaces the plain
-    attention (``widened_attention`` measures rounding noise); ``fault``
-    plants one of INT_FAULTS in every packed dense."""
+    kernel): (S, padded_vocab) logits.  With ``cfg.qk_norm`` each head of
+    q and k is RMS-normed by ``q_norm`` / ``k_norm`` before RoPE.
+    ``attention`` replaces the plain attention (``widened_attention``
+    measures rounding noise); ``fault`` plants one of INT_FAULTS in every
+    packed dense."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
     attention = attention or flash_attention_plain
     from repro_torch.models.blocks import apply_norm
-    from repro_torch.models.common import embed_lookup, rope
+    from repro_torch.models.common import embed_lookup, rms_norm, rope
     if cfg.mlp_act != "silu_glu":
         fail(f"plain_forward covers SwiGLU MLPs, not {cfg.mlp_act}")
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -1461,10 +1582,12 @@ def plain_forward(torch, params, cfg, tokens, attention=None, fault=None):
     for blk in params.blocks:
         a, f = blk.attn, blk.ffn
         y = apply_norm(blk.ln1, x, cfg)
-        q = rope(dense(y, a["wq"], a.get("bq")).reshape(1, s, h, dh), pos,
-                 cfg.rope_theta)
-        k = rope(dense(y, a["wk"], a.get("bk")).reshape(1, s, kv, dh), pos,
-                 cfg.rope_theta)
+        q = dense(y, a["wq"], a.get("bq")).reshape(1, s, h, dh)
+        k = dense(y, a["wk"], a.get("bk")).reshape(1, s, kv, dh)
+        if cfg.qk_norm:
+            q, k = rms_norm(q, a["q_norm"]), rms_norm(k, a["k_norm"])
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
         v = dense(y, a["wv"], a.get("bv")).reshape(1, s, kv, dh)
         o = attention(q, k, v)
         x = x + dense(o.reshape(1, s, h * dh), a["wo"])
@@ -1580,9 +1703,58 @@ def drive(torch, eng, requests, counters):
     return time.perf_counter() - t0, per_decode
 
 
+def weight_bytes(params) -> int:
+    """Bytes of a model's weights: raw tensors and packed payloads."""
+    from repro_torch.kernels.ops import PackedWeight
+    return sum(t.numel() * t.element_size() for t in params.parameters()) \
+        + sum(m.nbytes for m in params.modules()
+              if isinstance(m, PackedWeight))
+
+
+def memory(torch) -> dict:
+    """The card's peak allocation since the last reset, and its size."""
+    return {"max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "card_total_bytes": torch.cuda.get_device_properties(0)
+            .total_memory}
+
+
+def swap_qk_norms(torch, params):
+    """Exchange every layer's ``q_norm`` and ``k_norm`` in place."""
+    with torch.no_grad():
+        for blk in params.blocks:
+            qn = blk.attn["q_norm"].clone()
+            blk.attn["q_norm"].copy_(blk.attn["k_norm"])
+            blk.attn["k_norm"].copy_(qn)
+
+
+def qk_fault_check(torch, params, plain, r, tol, tag):
+    """QK_NORM_SPREAD's planted fault on the finished request ``r``:
+    ``plain(seq)`` with ``params``' q_norm and k_norm exchanged, against
+    ``plain(seq)`` on its teacher-forced rows, as a share of the row max;
+    it must reach QK_FAULT_MARGIN x ``tol``.  Returns (error, error /
+    tol)."""
+    seq = r.prompt + r.out_tokens[:-1]
+    start = len(r.prompt) - 1
+    ref = plain(seq)[start:].float().cpu()
+    swap_qk_norms(torch, params)
+    try:
+        bad = plain(seq)[start:].float().cpu()
+    finally:
+        swap_qk_norms(torch, params)
+    err = rel_err(bad, ref)
+    if not err >= QK_FAULT_MARGIN * tol:
+        fail(f"{tag}: request {r.rid}: q_norm and k_norm exchanged move the "
+             f"logits by {err} of the row max, not {QK_FAULT_MARGIN}x the "
+             f"bound {tol}: the check cannot see it")
+    return err, err / tol
+
+
 def serve(torch, card, cfg, params, tag):
-    """Phase 3 (tag 'bf16', raw weights) or 6 (a packed format): serve
-    the smoke traffic through submit/tick/drain and check the result."""
+    """Phase 3 (tag 'bf16', raw weights), 6 (a packed format) or 13 (any
+    GQA arch): serve the smoke traffic through submit/tick/drain and
+    check the result.  Prints the weights', the pool's and the card's
+    bytes and the peak allocation; with ``cfg.qk_norm`` the planted
+    QK_NORM_SPREAD fault must land outside the logit bound."""
     import numpy as np
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mpq_matmul as mm
@@ -1591,6 +1763,7 @@ def serve(torch, card, cfg, params, tag):
     from repro_torch.serve import Request, ServeConfig, ServingEngine
     sc = ServeConfig(max_batch=8, max_prompt=256, page_size=16, max_seq=2048,
                      max_new_tokens=32, record_logits=True)
+    torch.cuda.reset_peak_memory_stats()
     eng = ServingEngine(cfg, params, sc, device="cuda")
     eng.warmup()
     reqs = [Request(i, p) for i, p in enumerate(smoke_traffic(cfg.vocab_size))]
@@ -1652,7 +1825,10 @@ def serve(torch, card, cfg, params, tag):
                       "quant": tag, "layers": cfg.n_layers,
                       "requests": len(reqs), "tokens": n_tok, "wall_s": wall,
                       "tokens_per_s": n_tok / wall, "stats": st,
-                      "packed_weight_bytes": packed, "launches": launches,
+                      "packed_weight_bytes": packed,
+                      "weight_bytes": weight_bytes(params),
+                      "pool_bytes": eng.pool_bytes_per_shard(),
+                      **memory(torch), "launches": launches,
                       "launches_per_decode_tick": per_decode,
                       "dispatches": kinds, "launches_by_kind": by_kind,
                       "card": card}), flush=True)
@@ -1677,6 +1853,10 @@ def serve(torch, card, cfg, params, tag):
             errs.append({"rid": rid, "max_rel_err": rel,
                          "argmax_agree": agree,
                          "rel_tol": SERVE_REL_TOL_BF16})
+            if cfg.qk_norm:
+                errs[-1]["qk_fault"], errs[-1]["qk_fault_over_bound"] = \
+                    qk_fault_check(torch, params, lambda sq: plain_forward(
+                        torch, params, cfg, sq), r, SERVE_REL_TOL_BF16, tag)
             if not rel <= SERVE_REL_TOL_BF16:
                 fail(f"{tag}: request {rid}: teacher-forced logits differ "
                      f"by {rel} of the row max (> {SERVE_REL_TOL_BF16})")
@@ -2053,14 +2233,16 @@ def kv_logit_check(torch, plain, r, base_tol):
 
 def serve_kv(torch, card, cfg, params, fmt, prompts, want, base_tol,
              patch):
-    """Phase 10: serve ``prompts`` at full depth on a ``fmt`` pool
+    """Phase 10 (and 13): serve ``prompts`` at full depth on a ``fmt`` pool
     through submit/tick/drain.  Every dispatch's launches are logged and
     held to ``want`` (dispatch kind -> the one kernel it launches, once
     a layer); the pool's bytes are printed beside the fp pool's; every
     request's teacher-forced logits are held to kv_logit_check's bound,
     and the same engine with the planted fault (``patch`` = (module,
     wrapper name)), serving requests 0 and 8, must land outside it.
-    Returns the launches of the run, in all and by dispatch kind."""
+    With ``cfg.qk_norm`` the planted QK_NORM_SPREAD fault must land
+    outside the bound of requests 0 and 8.  Returns the launches of the
+    run, in all and by dispatch kind."""
     import numpy as np
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_flash_decode as pfd
@@ -2070,6 +2252,7 @@ def serve_kv(torch, card, cfg, params, fmt, prompts, want, base_tol,
     sc = ServeConfig(max_batch=8, max_prompt=256, page_size=16, max_seq=2048,
                      max_new_tokens=32, record_logits=True,
                      kv_format=fmt.name)
+    torch.cuda.reset_peak_memory_stats()
     eng = ServingEngine(cfg, params, sc, device="cuda")
     eng.warmup()
     reqs = [Request(i, p) for i, p in enumerate(prompts)]
@@ -2119,6 +2302,7 @@ def serve_kv(torch, card, cfg, params, fmt, prompts, want, base_tol,
                       "launches_by_kind": by_kind,
                       "pool_bytes_per_shard": pool, "fp_pool_bytes": fp_pool,
                       "pool_ratio": pool / fp_pool, "pool_ratio_limit": limit,
+                      "weight_bytes": weight_bytes(params), **memory(torch),
                       "card": card}), flush=True)
     if not pool <= limit * fp_pool:
         fail(f"{tag}: pool {pool} bytes is {pool / fp_pool} of the bf16 "
@@ -2147,6 +2331,9 @@ def serve_kv(torch, card, cfg, params, fmt, prompts, want, base_tol,
             if r.rid in faulty:
                 rec["fault"], rec["fault_floor"], rec["fault_tol"] = \
                     kv_logit_check(torch, plain, faulty[r.rid], base_tol)
+                if cfg.qk_norm:
+                    rec["qk_fault"], rec["qk_fault_over_bound"] = \
+                        qk_fault_check(torch, params, plain, r, tol, tag)
             checks.append(rec)
     print(json.dumps({"phase": "serve_kv_check", "arch": cfg.name,
                       "kv_format": fmt.name, "requests": checks}),
@@ -2554,6 +2741,72 @@ def overcommit_phase(torch, card, gqa_cfg, gqa_params, mla_cfg, mla_params):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the dense arch files, qwen3-8b and yi-34b.
+# ---------------------------------------------------------------------------
+
+def draw_qk_norms(torch, params, seed):
+    """Every layer's ``q_norm`` and ``k_norm`` drawn as exp(QK_NORM_SPREAD
+    * N(0, 1)) from ``seed``, in place."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for blk in params.blocks:
+            for k in ("q_norm", "k_norm"):
+                w = blk.attn[k]
+                w.copy_(torch.exp(QK_NORM_SPREAD * torch.randn(
+                    w.shape, generator=g, device=w.device)))
+
+
+def dense_arch_phase(torch, card):
+    """Phase 13: qwen3-8b and yi-34b at full width and depth, random
+    weights from seeded generators, through ``serve`` (phase 3's traffic
+    and checks): qwen3-8b (qk_norm, QK_NORM_SPREAD's norm weights) on a
+    bf16 pool and on an int8 pool (``serve_kv``, phase 10's bound); yi-34b
+    in bf16, then the same weights packed in place to w4a16
+    (``quantize_for_serving(..., consume=True)``) and served again.
+    Every earlier phase's weights are released before it.  Returns the
+    launches of each run by kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pageformat import INT8
+    from repro_torch.launch.serve import parse_quant
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.model import init_params, quantize_for_serving
+    t0 = time.perf_counter()
+    out = {}
+    cfg = get_config("qwen3-8b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(13),
+                         device="cuda")
+    draw_qk_norms(torch, params, 14)
+    out["qwen3-8b bf16"] = serve(torch, card, cfg, params, "bf16")[0]
+    out["qwen3-8b int8"] = serve_kv(
+        torch, card, cfg, params, INT8, smoke_traffic(cfg.vocab_size),
+        {k: "paged_flash_decode_partials_quant"
+         for k in ("fresh", "resumed", "decode")},
+        SERVE_REL_TOL_BF16, (attn_mod, "paged_flash_decode_partials"))[0]
+    del params
+    torch.cuda.empty_cache()
+    cfg = get_config("yi-34b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(15),
+                         device="cuda")
+    out["yi-34b bf16"] = serve(torch, card, cfg, params, "bf16")[0]
+    qcfg = cfg.with_(quant=parse_quant("w4a16"))
+    raw_bytes = weight_bytes(params)
+    torch.cuda.reset_peak_memory_stats()
+    params, n = quantize_for_serving(qcfg, params, consume=True)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "quantize_for_serving", "arch": cfg.name,
+                      "quant": "w4a16", "consume": True, "packed_tensors": n,
+                      "raw_weight_bytes": raw_bytes,
+                      "weight_bytes": weight_bytes(params), **memory(torch)}),
+          flush=True)
+    out["yi-34b w4a16"] = serve(torch, card, qcfg, params, "w4a16")[0]
+    del params
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "dense_archs",
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, rec, design=None):
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + source,
@@ -2609,7 +2862,11 @@ def kernel_checks(torch, timer):
                 torch, timer, dt, 128, ps=ps, c=c)
     more = [r for k, r in flash.items()
             if k not in ("dk128_dv128", "dk192_dv128")]
-    edges = paged_edge_checks(torch, timer)
+    from repro_torch.kernels.paged_flash_decode import HEAD_DIMS
+    edges = {f"dk{dk}_dv{dv}_{key}": rec for dk, dv in HEAD_DIMS
+             for key, rec in paged_edge_checks(
+                 torch, timer, KV=16 if dk != dv else 2, dh=dk,
+                 dv=dv).items()}
     for rec in recs + list(mla.values()) + more + list(edges.values()):
         print(json.dumps(dict(phase="kernel", **rec)), flush=True)
     print(json.dumps(edge_summary("paged_edges", edges)), flush=True)
@@ -2650,6 +2907,7 @@ def main() -> None:
         return
     recs, mla_recs, flash_recs, paged_sw = kernel_checks(torch, timer)
     q_recs = quant_kernel_checks(torch, timer)
+    g_recs = group_checks(torch, timer)
     t0 = time.perf_counter()
     mm_recs = [check_matmul(torch, timer, *case, seed=i)
                for i, case in enumerate(mm_cases())]
@@ -2721,6 +2979,7 @@ def main() -> None:
     oc_launches = overcommit_phase(torch, card, cfg, raw, dense, mla_params)
     del raw, mla_params
     torch.cuda.empty_cache()
+    arch_launches = dense_arch_phase(torch, card)
 
     for rec in (recs[0], recs[2], recs[3]):
         print(json.dumps({
@@ -2787,6 +3046,22 @@ def main() -> None:
         return {k: rec[k] for k in (
             "max_abs_err", "kernel_ms", "plain_ms", "library_ms",
             "library_ratio", "bound_ms", "bound_by", "shapes")}
+
+    def arch_runs(name):
+        """Phase 13's launches of kernel ``name``, by run."""
+        return {run: got[name] for run, got in arch_launches.items()
+                if got.get(name)}
+
+    def at_groups(name, keys):
+        """Phase 2d's numbers at each GROUP_HEADS arch: ``keys`` -> the
+        record's numbers, and the decode route's times by split."""
+        return {arch: dict({k: numbers(g_recs[arch][key])
+                            for k, key in keys.items()},
+                           decode_ms_by_split={
+                               str(c): g_recs[arch]["sweep"][
+                                   f"{name}_c{c}"]["kernel_ms"]
+                               for c in PAGED_SWEEP_C})
+                for arch in GROUP_HEADS}
     # flash and paged: the qwen2.5-3b path's numbers, with the MLA path's
     # (dk 192, dv 128) beside them
     line = {"kernels": [
@@ -2798,7 +3073,9 @@ def main() -> None:
              mla_path=dict(mla_path("flash_attention_fwd", mla_recs["flash"]),
                            library_ratio=mla_recs["flash"]["library_ratio"]),
              dk32=pair(flash_recs["dk32_dv32"]),
-             dk64=pair(flash_recs["dk64_dv64"])),
+             dk64=pair(flash_recs["dk64_dv64"]),
+             launches_dense_archs=arch_runs("flash_attention_fwd"),
+             **{arch: pair(g_recs[arch]["flash"]) for arch in GROUP_HEADS}),
         # the decode route's numbers at the engine's split (one 64-key
         # tile), with its times at each PAGED_SWEEP_C split, the chunk
         # route's (a resumed 256-row chunk) and each route's launches in
@@ -2816,7 +3093,9 @@ def main() -> None:
                  "chunk": by_kind["resumed"]["paged_flash_decode_partials"]},
              resumed=numbers(recs[3]),
              mla_path=mla_path("paged_flash_decode_partials",
-                               mla_recs["paged"])),
+                               mla_recs["paged"]),
+             launches_dense_archs=arch_runs("paged_flash_decode_partials"),
+             **at_groups("fp", {"decode": "decode", "resumed": "resumed"})),
         # rows 4-5: the bf16 route at the engine's split (one 64-key
         # tile), with its times at each MLA_SWEEP_C split beside it
         dict(kernel_entry("mla_paged_decode_partials", "mla_paged_decode.cu",
@@ -2827,7 +3106,10 @@ def main() -> None:
              pages_per_split=mla_recs["mla_P128"]["shapes"][
                  "pages_per_split"],
              ms_by_split=sweep_ms("fp")),
-        packed_entry("wo_matmul", "src/repro/kernels/mpq_matmul.py:56"),
+        dict(packed_entry("wo_matmul", "src/repro/kernels/mpq_matmul.py:56"),
+             launches_dense_archs=arch_runs("wo_matmul"),
+             **{"yi-34b": {k: numbers(r) for k, r in
+                           g_recs["yi-34b"]["wo_matmul"].items()}}),
         packed_entry("mpq_matmul", "src/repro/kernels/mpq_matmul.py:32"),
         # the quantized kernels: int8 at decode (the engine's split, with
         # its times at each PAGED_SWEEP_C split), with int4 and the
@@ -2854,7 +3136,12 @@ def main() -> None:
              resumed_int8=numbers(q_recs["gqa_int8_sq256_ceng_bf16"]),
              resumed_int4=numbers(q_recs["gqa_int4_sq256_ceng_bf16"]),
              fresh_int8=numbers(q_recs["gqa_int8_fresh_sq256_ceng_bf16"]),
-             fresh_int4=numbers(q_recs["gqa_int4_fresh_sq256_ceng_bf16"])),
+             fresh_int4=numbers(q_recs["gqa_int4_fresh_sq256_ceng_bf16"]),
+             launches_dense_archs=arch_runs(
+                 "paged_flash_decode_partials_quant"),
+             **at_groups("int8", {f"{w}_{f}": f"{w}_{f}"
+                                  for w in ("resumed", "fresh")
+                                  for f in ("int8", "int4")})),
         dict(kernel_entry("mla_paged_decode_partials_quant",
                           "mla_paged_decode.cu",
                           "src/repro/kernels/paged_flash_decode.py:337",

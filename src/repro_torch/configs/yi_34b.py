@@ -1,0 +1,13 @@
+"""yi-34b [dense] — llama-arch GQA [arXiv:2403.04652; hf].
+
+60L, d_model=7168, 56 heads (kv=8, head_dim=128), d_ff=20480,
+vocab 64000, rope theta 5e6.
+"""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="yi-34b", family="dense",
+    n_layers=60, d_model=7168, n_heads=56, n_kv_heads=8, d_ff=20480,
+    vocab_size=64000,
+    rope_theta=5e6,
+)

@@ -1,7 +1,8 @@
 """Where a serving tick's time goes on the card.
 
-Serves a full-size model (bf16, random weights; qwen2.5-3b, or
-``--arch deepseek-v2-lite-dense`` for the MLA path) with 8 requests of
+Serves a full-size model (bf16, random weights; qwen2.5-3b, or any
+registered ``--arch``: deepseek-v2-lite-dense for the MLA path, qwen3-8b,
+yi-34b) with 8 requests of
 700 prompt tokens, then times, without and with ``torch.profiler``:
 
   * the prefill ticks (three 256-token chunks per slot: one fresh wave,
@@ -17,13 +18,16 @@ flash-decoding combine that follows them (``_combine_page_partials``,
 a few elementwise kernels that no kernel name tells apart): this script
 wraps it in a ``record_function`` range (the model code carries none)
 and sums the kernels launched inside.  Needs one card.
-``--quant`` packs the weights first (as the serving launcher does);
+``--quant`` packs the weights first, in place (as the serving launcher
+does; yi-34b fits on one card only so);
 ``--kv-bits 8`` or ``4`` stores the KV pool as int8 or int4 pages.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --ticks 8
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch deepseek-v2-lite-dense
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --quant w4a16
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch yi-34b \
+      --quant w4a16
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --kv-bits 4
 """
 from __future__ import annotations
@@ -38,7 +42,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from repro_torch.configs import get_config
+from repro_torch.configs import all_archs, get_config
 from repro_torch.launch.serve import QUANT_CHOICES, kv_format, parse_quant
 from repro_torch.models import attention, mla
 from repro_torch.models.common import require_device
@@ -125,7 +129,7 @@ def _window(eng, ticks: int, profiled: bool) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--arch", default="qwen2.5-3b", choices=all_archs())
     ap.add_argument("--ticks", type=int, default=8)
     ap.add_argument("--quant", default="none", choices=QUANT_CHOICES)
     ap.add_argument("--kv-bits", type=int, default=0, choices=[0, 8, 4])
@@ -141,7 +145,7 @@ def main(argv=None):
                          device=dev)
     if args.quant != "none":
         cfg = cfg.with_(quant=parse_quant(args.quant))
-        params, _ = quantize_for_serving(cfg, params)
+        params, _ = quantize_for_serving(cfg, params, consume=True)
     sc = ServeConfig(max_batch=8, max_prompt=256, page_size=16,
                      max_seq=2048, max_new_tokens=4 * args.ticks + 8,
                      kv_format=kv_format(args.kv_bits))

@@ -19,6 +19,8 @@ KV pool's pages as int8 or int4 with a float32 scale a row
       --quant w4a16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch \
       deepseek-v2-lite-dense --kv-bits 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-34b \
+      --quant w4a16 --ttft-deadline 4
 """
 from __future__ import annotations
 
@@ -33,7 +35,6 @@ from repro_torch.models.common import require_device
 from repro_torch.models.model import init_params, quantize_for_serving
 from repro_torch.serve import Request, ServeConfig, ServingEngine
 
-TTFT_DEADLINE = 8       # engine ticks, on the high-priority half
 QUANT_CHOICES = ["none", "w8a8", "w4a16", "w2a16", "w4a8"]
 
 
@@ -65,6 +66,9 @@ def main(argv=None):
                     help="KV pool page storage: 0 = model dtype (the "
                     "default), 8/4 = int8/int4 pages with per-row scales "
                     "(ServeConfig.kv_format)")
+    ap.add_argument("--ttft-deadline", type=int, default=8,
+                    help="deadline (engine ticks) stamped on the "
+                    "high-priority half of the requests")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu' "
                     "(the kernels' plain PyTorch versions)")
@@ -78,7 +82,7 @@ def main(argv=None):
     params = init_params(cfg, gen, device=dev)
     if args.quant != "none":
         cfg = cfg.with_(quant=parse_quant(args.quant))
-        params, n = quantize_for_serving(cfg, params)
+        params, n = quantize_for_serving(cfg, params, consume=True)
         print(f"serving with {args.quant}: packed {n} tensors")
 
     rng = np.random.RandomState(1)
@@ -86,7 +90,7 @@ def main(argv=None):
     for i in range(args.requests):
         n = int(rng.randint(2, 9))
         # odd rids are the deadline-critical class; even rids best-effort
-        prio, deadline = (1, TTFT_DEADLINE) if i % 2 else (0, None)
+        prio, deadline = (1, args.ttft_deadline) if i % 2 else (0, None)
         reqs.append(Request(i, [int(t) for t in
                                 rng.randint(0, cfg.vocab_size, n)],
                             priority=prio, ttft_deadline=deadline))

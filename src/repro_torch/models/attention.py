@@ -23,6 +23,11 @@ reads it.  Its fresh chunks run as a resume at offset 0, as the
 reference's do: every K/V row a query sees then comes back from the pool,
 so the logits do not depend on how a prompt was chunked or shared.
 
+With ``cfg.qk_norm`` (qwen3) each head of q and k is RMS-normed by the
+float32 ``q_norm`` / ``k_norm`` weights (dh,) before RoPE, as the
+reference does; the normed, roped k is what every dispatch writes into
+the pool.
+
 The pool is written in place (:func:`~repro_torch.models.common.
 paged_scatter`, :func:`~repro_torch.models.common.paged_scatter_quant`).
 """
@@ -39,7 +44,7 @@ from repro_torch.kernels.paged_flash_decode import (TILE_KEYS,
 from repro_torch.models.common import (ParamSpec, broadcast_offset,
                                        chunk_lengths, chunk_valid_mask, dense,
                                        paged_scatter, paged_scatter_quant,
-                                       rope)
+                                       rms_norm, rope)
 
 NEG_INF = -1e30
 # Bytes the float32 partials of one dispatch may take.  Per-page partials
@@ -64,8 +69,8 @@ def attn_specs(cfg) -> dict:
         specs["bk"] = ParamSpec((kv * dh,), init="zeros")
         specs["bv"] = ParamSpec((kv * dh,), init="zeros")
     if cfg.qk_norm:
-        raise ValueError(f"{cfg.name}: qk_norm is not in this slice of the "
-                         "port (ROADMAP queue 1 item 8)")
+        specs["q_norm"] = ParamSpec((dh,), init="ones", dtype=torch.float32)
+        specs["k_norm"] = ParamSpec((dh,), init="ones", dtype=torch.float32)
     return specs
 
 
@@ -211,6 +216,9 @@ def apply_attention(p, x: torch.Tensor, cfg, *, cache: dict, mode: str,
     q = dense(x, p["wq"], cfg.quant, p.get("bq")).reshape(b, s, h, dh)
     k = dense(x, p["wk"], cfg.quant, p.get("bk")).reshape(b, s, kv, dh)
     v = dense(x, p["wv"], cfg.quant, p.get("bv")).reshape(b, s, kv, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
     ar = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
     if mode == "chunk":
         len_b = chunk_lengths(pos, b, dev)

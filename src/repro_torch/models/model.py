@@ -52,8 +52,8 @@ def _block_kind(cfg: ArchConfig) -> str:
     raise ValueError(
         f"{cfg.name}: pattern {cfg.pattern} (input {cfg.input_mode}) is not "
         "in this slice of the port, which serves one token-input scan of "
-        f"{' or '.join(BLOCKS)} blocks (ROADMAP queue 1 "
-        f"{'item 12, MoE' if moe else 'items 8-13'})")
+        f"{' or '.join(BLOCKS)} blocks (ROADMAP queue 1 item "
+        f"{'12, MoE' if moe else '13, recurrent and embeds-input families'})")
 
 
 def _n_layers(cfg: ArchConfig) -> int:
@@ -169,15 +169,6 @@ def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int, *,
                                          kv_format), None, cfg.dtype, dev)
 
 
-def _map_specs(spec, leaf, fn):
-    """``fn(spec, leaf)`` on every ParamSpec leaf of the spec tree."""
-    if isinstance(spec, ParamSpec):
-        return fn(spec, leaf)
-    if isinstance(spec, dict):
-        return {k: _map_specs(spec[k], leaf[k], fn) for k in spec}
-    return [_map_specs(s, v, fn) for s, v in zip(spec, leaf)]
-
-
 def _n_quantizable(spec) -> int:
     if isinstance(spec, ParamSpec):
         return int(spec.quantize)
@@ -185,14 +176,34 @@ def _n_quantizable(spec) -> int:
     return sum(_n_quantizable(v) for v in vals)
 
 
-def quantize_for_serving(cfg: ArchConfig,
-                         params: Transformer) -> Tuple[Transformer, int]:
+def _pack_tree(spec, tree, quant):
+    """The packed tree of the raw ``tree`` laid out as ``spec``: each
+    quantize-eligible leaf packed into a :class:`PackedWeight`, the rest
+    as they are.  Each leaf is taken out of ``tree`` as it is packed, so
+    that no reference to a raw leaf outlives its packing here."""
+    if isinstance(spec, ParamSpec):
+        return prepare_weight(tree, quant) if spec.quantize else tree
+    if isinstance(spec, dict):
+        return {k: _pack_tree(s, tree.pop(k), quant) for k, s in spec.items()}
+    return [_pack_tree(s, tree.pop(0), quant) for s in spec]
+
+
+def quantize_for_serving(cfg: ArchConfig, params: Transformer, *,
+                         consume: bool = False) -> Tuple[Transformer, int]:
     """Pack every quantize-eligible weight (``ParamSpec.quantize``) into
     a :class:`PackedWeight` in the format of ``cfg.quant``, ``lm_head``
     included.  Returns (the packed model, the count the reference's
     ``quantize_for_serving`` returns for this config): the reference
     stacks a scan stage's layers, so each eligible block weight counts
-    once however many layers the stage has."""
+    once however many layers the stage has.
+
+    With ``consume`` the raw model gives up its tensors first (each of its
+    parameters is left empty, and it must not be used again): a raw leaf
+    is then freed as soon as it is packed, so the peak is the raw model
+    plus the largest leaf's packing, not the raw and packed models
+    together (yi-34b on one card).  The packed model is the same, bit for
+    bit; its unpacked leaves (embedding, norms, biases) are the raw
+    model's tensors in both forms."""
     if cfg.quant is None or cfg.quant.mode not in ("int", "wo"):
         raise ValueError("quantize_for_serving needs an int/wo QuantConfig "
                          f"on cfg.quant, got {cfg.quant}")
@@ -202,9 +213,11 @@ def quantize_for_serving(cfg: ArchConfig,
             f"{cfg.name}: packed MLA weights are not in this slice of the "
             "port (ROADMAP queue 1 item 11)")
     specs = param_specs(cfg)
-    packed = _map_specs(
-        specs, params.tree(),
-        lambda s, v: prepare_weight(v, cfg.quant) if s.quantize else v)
+    tree = params.tree()
+    if consume:
+        for p in params.parameters():
+            p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+    packed = _pack_tree(specs, tree, cfg.quant)
     blocks = specs.pop("blocks")
     n = _n_quantizable(specs) + (_n_quantizable(blocks[0]) if blocks else 0)
     return Transformer(cfg, packed), n

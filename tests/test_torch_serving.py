@@ -131,6 +131,32 @@ def test_launcher_twin_runs_on_cpu():
     assert lines[-1].startswith("device cpu:")
 
 
+@pytest.mark.parametrize("deadline", [None, 1, 30])
+def test_launcher_ttft_deadline_flag(deadline):
+    """``--ttft-deadline`` stamps its deadline on the high-priority (odd)
+    requests, 8 ticks when it is not given, as the reference's launcher;
+    the ledger counts each of them once."""
+    out = io.StringIO()
+    argv = ["--arch", "qwen3-8b", "--reduce", "--device", "cpu",
+            "--requests", "4", "--max-batch", "1", "--max-new-tokens", "3"]
+    if deadline is not None:
+        argv += ["--ttft-deadline", str(deadline)]
+    with contextlib.redirect_stdout(out):
+        launcher.main(argv)
+    lines = out.getvalue().splitlines()
+    want = 8 if deadline is None else deadline
+    stamped = [ln for ln in lines if ln.startswith("req ") and "ttft=" in ln]
+    assert [ln.split()[1] for ln in stamped] == ["1:", "3:"]
+    assert all(f"t/{want}t " in ln for ln in stamped)
+    hits = sum(ln.endswith("hit]") for ln in stamped)
+    ledger = next(ln for ln in lines if ln.startswith("deadline ledger:"))
+    assert ledger == f"deadline ledger: {hits} hit / {2 - hits} miss"
+    if deadline == 1:
+        assert hits < 2          # one slot: a deadline of one tick is missed
+    if deadline == 30:
+        assert hits == 2
+
+
 # -- packed weights -----------------------------------------------------------
 
 QUANTS = {"w4a16": ("wo", 8, 4), "w8a8": ("int", 8, 8)}
