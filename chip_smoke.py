@@ -139,6 +139,25 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
       fault (q_norm and k_norm exchanged in the plain forward)
       QK_FAULT_MARGIN outside each bound.  The weights', the pool's and
       the card's bytes and the peak allocation are printed for each run.
+  14. the contiguous cache layout (``ServeConfig(paged=False)``), after
+      phase 13's weights are released: qwen2.5-3b (phase 3's weights)
+      and deepseek-v2-lite-dense (phase 8's), full width and depth, bf16,
+      phase 3's traffic through CONTIG_SERVE (8 slots, every prompt one
+      1024-token chunk, 32 new tokens, the cache read as pages of 16 over
+      each slot's 1056 rows).  Every request completes; a fresh wave
+      launches the flash kernel once a layer and nothing else, a decode
+      step the paged kernel's decode route (GQA) or the MLA kernel once a
+      layer and nothing else.  The paged engine at the same chunk and
+      page size (no prefix sharing) must give the same tokens, and the
+      logits' largest difference is printed.  The shortest request's and
+      request 0's teacher-forced logits are held as in phases 3 and 8;
+      the engine with one key short at every decode call (GQA kv_valid =
+      pos, MLA rows <= pos - 1) must land outside the bound on the
+      shortest.  Then ``make_chunked_prefill_resume_step`` feeds a
+      1024-token prompt into a contiguous qwen2.5-3b cache in four
+      256-token chunks, each launching the paged kernel's chunk route
+      once a layer, and its last logits are held to the single pass.
+      The cache's bytes are printed beside the card.
 
 Phase 2 also holds the MLA path's kernels (phase 2b): the flash forward
 at q/k 192 / v 128 on a fresh 256-token chunk (KV = H = 16), the paged
@@ -179,6 +198,10 @@ a tensor-core route (the decode route up to 16 Sq x G rows, the chunk
 route above), which must equal, bit for bit, the fp kernel's same route
 on the same pool dequantized by ``PageFormat.dequantize``; every bf16
 case records that comparison.  The engine's choices are timed in bf16.
+With the kernel checks, ``contiguous_yardstick`` times each decode
+kernel at phase 14's decode shape, alone and with the combine, beside
+``scaled_dot_product_attention`` over the contiguous window (the
+library call of kernel table rows 2 and 4; never on the main path).
 
 The second-to-last line is a JSON object listing the ported kernels; the
 last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2010,8 +2033,14 @@ def record_dispatches(eng, counters):
                                      for n, c in counters.items()}))
             return out
         return run
+    # a paged wave passes offsets last (None: fresh); the contiguous
+    # engine's waves are all fresh and pass none.  The kinds read no
+    # engine: a closure over it would keep it, its cache and its
+    # weights alive after ``del eng`` until the cycle collector runs
+    fresh_only = not eng.sc.paged
     eng._prefill = wrap(eng._prefill,
-                        lambda a: "fresh" if a[-1] is None else "resumed")
+                        lambda a: "fresh" if fresh_only or a[-1] is None
+                        else "resumed")
     eng._decode = wrap(eng._decode, lambda a: "decode")
     return log
 
@@ -2807,6 +2836,340 @@ def dense_arch_phase(torch, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the contiguous cache layout (``ServeConfig(paged=False)``).
+# ---------------------------------------------------------------------------
+
+# phase 14's engines: phase 3's traffic with every prompt one chunk (the
+# contiguous engine has no resumable prefill), 8 slots of slot_rows =
+# 1056 rows, read by the kernels as pages of 16 rows
+CONTIG_SERVE = dict(max_batch=8, max_prompt=1024, page_size=16,
+                    max_new_tokens=32, record_logits=True)
+# make_chunked_prefill_resume_step's check: a prompt fed in chunks
+RESUME_PROMPT, RESUME_CHUNK = 1024, 256
+
+
+def contig_engine(cfg, params, paged):
+    """Phase 14's engine, contiguous or its paged twin.  Neither shares a
+    prefix: a sharer resumes its prompt on the paged kernel's chunk
+    route, where the contiguous engine runs one fresh chunk."""
+    from repro_torch.serve import ServeConfig, ServingEngine
+    sc = ServeConfig(paged=paged, prefix_sharing=False, **CONTIG_SERVE)
+    return ServingEngine(cfg, params, sc, device="cuda")
+
+
+def one_key_short(torch, mla):
+    """Plant phase 14's fault: every decode call of the attention kernel
+    leaves out the newest key, the slot's own row (GQA: kv_valid = pos;
+    MLA: rows <= pos - 1).  Returns the function that takes it out."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import mla as mla_mod
+    if mla:
+        good = mla_mod.mla_paged_decode_partials
+
+        def short(pool, q_c, q_rope, tbl, pos, r, scale_dim, **kw):
+            return good(pool, q_c, q_rope, tbl,
+                        torch.where(pos >= 0, pos - 1, pos), r, scale_dim,
+                        **kw)
+        mla_mod.mla_paged_decode_partials = short
+        return lambda: setattr(mla_mod, "mla_paged_decode_partials", good)
+    good = attn_mod.paged_flash_decode_partials
+
+    def short(k_pool, v_pool, q, tbl, qpos, kv_valid, **kw):
+        if q.shape[1] == 1:
+            kv_valid = (kv_valid - 1).clamp_min(0)
+        return good(k_pool, v_pool, q, tbl, qpos, kv_valid, **kw)
+    attn_mod.paged_flash_decode_partials = short
+    return lambda: setattr(attn_mod, "paged_flash_decode_partials", good)
+
+
+def contiguous_serve(torch, card, cfg, params, mla, plain, tol):
+    """Phase 14, one model: serve phase 3's traffic through the
+    contiguous engine (every request completes; a fresh wave launches
+    the flash kernel once a layer and nothing else, a decode step the
+    decode kernel, ``mla`` or GQA, once a layer and nothing else), then
+    through the paged engine at the same chunk and page size: tokens
+    equal, the logits' largest difference printed.  The shortest
+    request's and request 0's (1024 tokens) teacher-forced logits must be
+    within ``tol`` of ``plain(seq)``; the engine with one key short at
+    decode (``one_key_short``) serving the two must land outside it on
+    the shortest, where one key is the largest share of a slot's keys
+    (request 0's reading is printed).  Returns the launches by kernel."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.serve import Request
+    attn = "mla_paged_decode_partials" if mla else \
+        "paged_flash_decode_partials"
+    counters = {"flash_attention_fwd": lambda: fa.launches,
+                "paged_flash_decode_partials": lambda: pfd.launches,
+                "mla_paged_decode_partials": lambda: pfd.mla_launches}
+    want = {"fresh": "flash_attention_fwd", "decode": attn}
+    prompts = smoke_traffic(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    eng = contig_engine(cfg, params, paged=False)
+    eng.warmup()
+    reqs = [Request(i, p) for i, p in enumerate(prompts)]
+    log = record_dispatches(eng, counters)
+    fa.launches = pfd.launches = pfd.mla_launches = 0
+    wall, per_decode = drive(torch, eng, reqs, counters)
+    eng.drain()
+    launches = {n: c() for n, c in counters.items()}
+    kinds = {"fresh": 0, "resumed": 0, "decode": 0}
+    for kind, got in log:
+        kinds[kind] += 1
+        exp = {n: (cfg.n_layers if n == want.get(kind) else 0)
+               for n in counters}
+        if got != exp:
+            fail(f"contiguous {cfg.name}: a {kind} dispatch launched {got}, "
+                 f"want {exp}")
+    if kinds["resumed"] or min(kinds["fresh"], kinds["decode"]) < 1:
+        fail(f"contiguous {cfg.name}: dispatch kinds {kinds}")
+    for r in reqs:
+        if not r.done or r.failed or \
+                len(r.out_tokens) != CONTIG_SERVE["max_new_tokens"]:
+            fail(f"contiguous {cfg.name}: request {r.rid}: done={r.done} "
+                 f"failed={r.failed} tokens={len(r.out_tokens)}")
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    print(json.dumps({"phase": "contiguous", "arch": cfg.name,
+                      "dtype": str(cfg.dtype), "layers": cfg.n_layers,
+                      "requests": len(reqs), "tokens": n_tok,
+                      "wall_s": wall, "tokens_per_s": n_tok / wall,
+                      "stats": eng.stats(), "dispatches": kinds,
+                      "launches": launches,
+                      "launches_per_decode_tick": per_decode,
+                      "cache_bytes": eng.pool_bytes_per_shard(),
+                      "cache_shape": list(next(iter(
+                          eng.cache[0].values())).shape),
+                      "weight_bytes": weight_bytes(params), **memory(torch),
+                      "card": card}), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    twin = contig_engine(cfg, params, paged=True)
+    paged = twin.run([Request(i, p) for i, p in enumerate(prompts)])
+    pool_bytes = twin.pool_bytes_per_shard()
+    del twin
+    torch.cuda.empty_cache()
+    paged = {r.rid: r for r in paged}
+    diff = max(float(np.abs(np.stack(r.logits)
+                            - np.stack(paged[r.rid].logits)).max())
+               for r in reqs)
+    same = [r.rid for r in reqs if r.out_tokens == paged[r.rid].out_tokens]
+    rec = {"phase": "contiguous_vs_paged", "arch": cfg.name,
+           "same_tokens": len(same), "requests": len(reqs),
+           "logits_max_abs_diff": diff, "paged_pool_bytes": pool_bytes}
+    print(json.dumps(rec), flush=True)
+    if len(same) != len(reqs):
+        fail(f"contiguous {cfg.name}: tokens differ from the paged "
+             f"engine's ({rec})")
+    short = min(range(len(prompts)), key=lambda i: len(prompts[i]))
+    checked = (short, 0)
+    undo = one_key_short(torch, mla)
+    try:
+        bad = contig_engine(cfg, params, paged=False)
+        faulty = bad.run([Request(i, prompts[i]) for i in checked])
+        del bad
+    finally:
+        undo()
+    torch.cuda.empty_cache()
+    faulty = {r.rid: r for r in faulty}
+    checks = []
+    with torch.inference_mode():
+        for rid in checked:
+            out = {"rid": rid, "prompt": len(prompts[rid]), "rel_tol": tol}
+            for tag, r in (("engine", reqs[rid]), ("fault", faulty[rid])):
+                seq = r.prompt + r.out_tokens[:-1]
+                start = len(r.prompt) - 1
+                got = torch.from_numpy(np.stack(r.logits))
+                ref = plain(torch, params, cfg, seq)[start:].float().cpu()
+                out[tag] = rel_err(got, ref)
+                if tag == "engine":
+                    out["argmax_agree"] = (got.argmax(-1) == ref.argmax(-1)) \
+                        .float().mean().item()
+            checks.append(out)
+    print(json.dumps({"phase": "contiguous_check", "arch": cfg.name,
+                      "requests": checks}), flush=True)
+    for out in checks:
+        if not out["engine"] <= tol:
+            fail(f"contiguous {cfg.name}: request {out['rid']}: "
+                 f"teacher-forced logits differ by {out['engine']} of the "
+                 f"row max (> {tol})")
+    if not checks[0]["fault"] > tol:
+        fail(f"contiguous {cfg.name}: one key short at decode moves request "
+             f"{short}'s logits by {checks[0]['fault']} of the row max, "
+             f"inside the bound {tol}: the check cannot see it")
+    return launches
+
+
+def resume_check(torch, cfg, params):
+    """Phase 14: ``make_chunked_prefill_resume_step`` on a contiguous
+    cache feeds a RESUME_PROMPT-token prompt in RESUME_CHUNK-token chunks,
+    each dispatch launching the paged kernel's chunk route once a layer
+    and nothing else; the last chunk's last-token logits must be within
+    SERVE_REL_TOL_BF16 of the single-pass ``make_chunked_prefill_step``'s.
+    Returns the paged kernel's launches."""
+    import numpy as np
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.models.common import ContigView
+    from repro_torch.models.model import init_cache
+    from repro_torch.train.step import (make_chunked_prefill_resume_step,
+                                        make_chunked_prefill_step)
+    rng = np.random.RandomState(14)
+    toks = torch.tensor(rng.randint(0, cfg.vocab_size, (1, RESUME_PROMPT)),
+                        dtype=torch.int32, device="cuda")
+    step = make_chunked_prefill_resume_step(
+        cfg, ContigView(CONTIG_SERVE["page_size"], RESUME_PROMPT))
+    lens = torch.tensor([RESUME_CHUNK], dtype=torch.int32, device="cuda")
+    cache = init_cache(cfg, 1, RESUME_PROMPT, device="cuda")
+    per, total = [], 0
+    with torch.inference_mode():
+        for off in range(0, RESUME_PROMPT, RESUME_CHUNK):
+            f0, p0 = fa.launches, pfd.launches
+            last, cache = step(params, cache, toks[:, off:off + RESUME_CHUNK],
+                               lens, torch.tensor([off], dtype=torch.int32,
+                                                  device="cuda"))
+            per.append([fa.launches - f0, pfd.launches - p0])
+            total += pfd.launches - p0
+        del cache
+        single, _ = make_chunked_prefill_step(cfg)(
+            params, init_cache(cfg, 1, RESUME_PROMPT, device="cuda"), toks,
+            torch.tensor([RESUME_PROMPT], dtype=torch.int32, device="cuda"))
+    err = rel_err(last.float().cpu(), single.float().cpu())
+    rec = {"phase": "contiguous_resume", "arch": cfg.name,
+           "chunks": len(per), "launches_flash_paged": per,
+           "max_rel_err": err, "rel_tol": SERVE_REL_TOL_BF16}
+    print(json.dumps(rec), flush=True)
+    if any(p != [0, cfg.n_layers] for p in per):
+        fail(f"contiguous resume: launches (flash, paged) per dispatch {per}"
+             f", want [0, {cfg.n_layers}]")
+    if not err <= SERVE_REL_TOL_BF16:
+        fail(f"contiguous resume: the last chunk's logits differ from the "
+             f"single pass by {err} of the row max (> {SERVE_REL_TOL_BF16})")
+    torch.cuda.empty_cache()
+    return total
+
+
+def contiguous_phase(torch, card):
+    """Phase 14: qwen2.5-3b (phase 3's weights) and deepseek-v2-lite-dense
+    (phase 8's) at full width and depth on the contiguous cache
+    (``contiguous_serve``), and the resumed contiguous chunk on qwen2.5-3b
+    (``resume_check``).  Runs after every earlier phase's weights are
+    released.  Returns the launches by kernel, summed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2.5-3b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    total = contiguous_serve(torch, card, cfg, params, False, plain_forward,
+                             SERVE_REL_TOL_BF16)
+    total["paged_flash_decode_partials"] += resume_check(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    cfg = get_config("deepseek-v2-lite-dense")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(2),
+                         device="cuda")
+    got = contiguous_serve(torch, card, cfg, params, True, plain_mla_forward,
+                           SERVE_MLA_REL_TOL)
+    del params
+    torch.cuda.empty_cache()
+    for n, v in got.items():
+        total[n] += v
+    print(json.dumps({"phase": "contiguous_layout", "launches": total,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return total
+
+
+def contiguous_yardstick(torch, timer, B=8, cap=5376, rows=1056, ps=16):
+    """The decode kernels beside one library call that computes what
+    kernel and combine compute, at phase 14's decode shape: ``B`` slots
+    of a ``cap``-row contiguous cache read through pages of ``ps`` rows
+    over their first ``rows`` rows (the engine's view, its split of one
+    64-key tile), each slot at its own fill.  The call is
+    ``scaled_dot_product_attention`` over each slot's window masked at
+    its fill, the query heads of one KV head taken as query rows of one
+    head: GQA at H 16 / KV 2 / dh 128, MLA's absorbed form at dk 576 /
+    dv 512 and one shared latent head.  Each is timed as the kernel
+    alone, kernel + ``_combine_page_partials`` and the call, and the
+    call's output must equal the kernel's combined one within the
+    kernel's tolerance.  Never on the main path."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.models.attention import _combine_page_partials, page_split
+    from repro_torch.models.common import ContigView, contig_pages
+    from repro_torch.models.mla import decode_split
+    g = torch.Generator(device="cuda").manual_seed(30)
+    bf = torch.bfloat16
+    pos_np = np.linspace(32, rows - 1, B).astype(np.int32)
+    pos = torch.from_numpy(pos_np).cuda()
+    view = ContigView(ps, rows)
+    mask = (torch.arange(rows, device="cuda")[None] <= pos[:, None])
+    mask = mask[:, None, None, :]
+    live = int((pos_np + 1).sum())
+    out = {}
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(bf)
+
+    # GQA: K / V (B, cap, KV, dh)
+    H, KV, dh = 16, 2, 128
+    k, v, q = rand(B, cap, KV, dh), rand(B, cap, KV, dh), rand(B, 1, H, dh)
+    (kp, vp), tbl = contig_pages((k, v), view)
+    c = page_split(B, 1, H, KV, tbl.shape[1], ps, dh)
+    qpos, kv_valid = pos[:, None].contiguous(), (pos + 1).contiguous()
+    kern = lambda: pfd.paged_flash_decode_partials(  # noqa: E731
+        kp, vp, q, tbl, qpos, kv_valid, pages_per_split=c)
+    both = lambda: _combine_page_partials(*kern())  # noqa: E731
+    qs = q.reshape(B, KV, H // KV, dh)
+    ks, vs = k[:, :rows].transpose(1, 2), v[:, :rows].transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs, ks, vs, attn_mask=mask)
+    err = (both().reshape(B, KV, H // KV, dh) - sdpa().float()).abs().max()
+    out["gqa"] = {"shapes": {"q": [B, 1, H, dh], "cache": [B, cap, KV, dh],
+                             "rows": rows, "page_size": ps,
+                             "pages_per_split": c},
+                  "max_abs_err_vs_kernel": err.item(), "tol": PAGED_TOL_BF16,
+                  "kernel_ms": timer.ms(kern), "kernel_combine_ms":
+                  timer.ms(both), "library_ms": timer.ms(sdpa)}
+    out["gqa"]["bound_ms"], out["gqa"]["bound_by"] = bound_ms(
+        live * KV * dh * 2 * 2 + q.numel() * 2 * 2,
+        4 * live * H * dh)
+    del k, v, kp, vp
+    # MLA, absorbed: latent rows (B, cap, r + dr), queries q_c / q_rope
+    r, dr = 512, 64
+    pool, q_c, q_r = rand(B, cap, r + dr), rand(B, 1, H, r), rand(B, 1, H, dr)
+    (pp,), tbl = contig_pages((pool,), view)
+    c = decode_split(ps, B, 1, H, tbl.shape[1], r)
+    kern = lambda: pfd.mla_paged_decode_partials(  # noqa: E731
+        pp, q_c, q_r, tbl, pos, r, 192, pages_per_split=c)
+    both = lambda: _combine_page_partials(*kern())  # noqa: E731
+    qs = torch.cat([q_c, q_r], dim=-1)                 # (B, 1, H, 576)
+    ks = pool[:, None, :rows]
+    vs = pool[:, None, :rows, :r]
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs, ks, vs, attn_mask=mask, scale=192 ** -0.5)
+    err = (both() - sdpa().float()).abs().max()
+    out["mla"] = {"shapes": {"q_c": [B, 1, H, r], "q_rope": [B, 1, H, dr],
+                             "cache": [B, cap, r + dr], "rows": rows,
+                             "page_size": ps, "pages_per_split": c},
+                  "max_abs_err_vs_kernel": err.item(), "tol": MLA_TOL_BF16,
+                  "kernel_ms": timer.ms(kern), "kernel_combine_ms":
+                  timer.ms(both), "library_ms": timer.ms(sdpa)}
+    out["mla"]["bound_ms"], out["mla"]["bound_by"] = bound_ms(
+        live * (r + dr) * 2 + (q_c.numel() + q_r.numel()) * 2
+        + B * H * r * 2, 2 * live * H * (r + dr) + 2 * live * H * r)
+    for name, rec in out.items():
+        print(json.dumps(dict(phase="contiguous_yardstick", path=name,
+                              **rec)), flush=True)
+        if not rec["max_abs_err_vs_kernel"] <= rec["tol"]:
+            fail(f"yardstick {name}: SDPA over the window reads "
+                 f"{rec['max_abs_err_vs_kernel']} from kernel + combine "
+                 f"(> {rec['tol']}): it does not compute the same function")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, rec, design=None):
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + source,
@@ -2908,6 +3271,7 @@ def main() -> None:
     recs, mla_recs, flash_recs, paged_sw = kernel_checks(torch, timer)
     q_recs = quant_kernel_checks(torch, timer)
     g_recs = group_checks(torch, timer)
+    yard = contiguous_yardstick(torch, timer)
     t0 = time.perf_counter()
     mm_recs = [check_matmul(torch, timer, *case, seed=i)
                for i, case in enumerate(mm_cases())]
@@ -2980,6 +3344,7 @@ def main() -> None:
     del raw, mla_params
     torch.cuda.empty_cache()
     arch_launches = dense_arch_phase(torch, card)
+    contig_launches = contiguous_phase(torch, card)
 
     for rec in (recs[0], recs[2], recs[3]):
         print(json.dumps({
@@ -3042,6 +3407,14 @@ def main() -> None:
         return {str(c): paged_sw[f"{pool}_c{c}"]["kernel_ms"]
                 for c in PAGED_SWEEP_C}
 
+    def yardstick(rec):
+        """A decode kernel's library call: SDPA over the contiguous window
+        (``contiguous_yardstick``), with the kernel's times at its shape
+        beside it."""
+        return {"library_ms": rec["library_ms"], "library": dict(
+            rec, call="scaled_dot_product_attention over each slot's "
+            "contiguous window, masked at its fill")}
+
     def pair(rec):
         return {k: rec[k] for k in (
             "max_abs_err", "kernel_ms", "plain_ms", "library_ms",
@@ -3075,6 +3448,7 @@ def main() -> None:
              dk32=pair(flash_recs["dk32_dv32"]),
              dk64=pair(flash_recs["dk64_dv64"]),
              launches_dense_archs=arch_runs("flash_attention_fwd"),
+             launches_contiguous=contig_launches["flash_attention_fwd"],
              **{arch: pair(g_recs[arch]["flash"]) for arch in GROUP_HEADS}),
         # the decode route's numbers at the engine's split (one 64-key
         # tile), with its times at each PAGED_SWEEP_C split, the chunk
@@ -3095,6 +3469,9 @@ def main() -> None:
              mla_path=mla_path("paged_flash_decode_partials",
                                mla_recs["paged"]),
              launches_dense_archs=arch_runs("paged_flash_decode_partials"),
+             launches_contiguous=contig_launches[
+                 "paged_flash_decode_partials"],
+             **yardstick(yard["gqa"]),
              **at_groups("fp", {"decode": "decode", "resumed": "resumed"})),
         # rows 4-5: the bf16 route at the engine's split (one 64-key
         # tile), with its times at each MLA_SWEEP_C split beside it
@@ -3103,9 +3480,10 @@ def main() -> None:
                           mla_launches["mla_paged_decode_partials"],
                           mla_recs["mla_P128"], MLA_DESIGN),
              launches_overcommit=oc_launches["mla_paged_decode_partials"],
+             launches_contiguous=contig_launches["mla_paged_decode_partials"],
              pages_per_split=mla_recs["mla_P128"]["shapes"][
                  "pages_per_split"],
-             ms_by_split=sweep_ms("fp")),
+             ms_by_split=sweep_ms("fp"), **yardstick(yard["mla"])),
         dict(packed_entry("wo_matmul", "src/repro/kernels/mpq_matmul.py:56"),
              launches_dense_archs=arch_runs("wo_matmul"),
              **{"yi-34b": {k: numbers(r) for k, r in

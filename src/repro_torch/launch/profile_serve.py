@@ -21,6 +21,11 @@ and sums the kernels launched inside.  Needs one card.
 ``--quant`` packs the weights first, in place (as the serving launcher
 does; yi-34b fits on one card only so);
 ``--kv-bits 8`` or ``4`` stores the KV pool as int8 or int4 pages.
+``--contiguous`` serves the same model with the paged engine and the
+contiguous one (``ServeConfig(paged=False)``) in turn, paged,
+contiguous, contiguous, paged, at a 1024-token chunk so that each
+700-token prompt is one fresh wave (the contiguous engine's only kind),
+the prefill window then one tick.  Each line names its ``layout``.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --ticks 8
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
@@ -29,6 +34,7 @@ does; yi-34b fits on one card only so);
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch yi-34b \
       --quant w4a16
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --kv-bits 4
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --contiguous
 """
 from __future__ import annotations
 
@@ -133,7 +139,12 @@ def main(argv=None):
     ap.add_argument("--ticks", type=int, default=8)
     ap.add_argument("--quant", default="none", choices=QUANT_CHOICES)
     ap.add_argument("--kv-bits", type=int, default=0, choices=[0, 8, 4])
+    ap.add_argument("--contiguous", action="store_true",
+                    help="alternate the paged and contiguous engines")
     args = ap.parse_args(argv)
+    if args.contiguous and args.kv_bits:
+        ap.error("--contiguous serves an fp cache: the contiguous layout "
+                 "stores the model's dtype")
     dev = require_device("cuda")
     _wrap_combine()
     card = subprocess.run(
@@ -146,28 +157,43 @@ def main(argv=None):
     if args.quant != "none":
         cfg = cfg.with_(quant=parse_quant(args.quant))
         params, _ = quantize_for_serving(cfg, params, consume=True)
-    sc = ServeConfig(max_batch=8, max_prompt=256, page_size=16,
-                     max_seq=2048, max_new_tokens=4 * args.ticks + 8,
-                     kv_format=kv_format(args.kv_bits))
-    rng = np.random.RandomState(0)
-    for profiled in (False, True):
-        eng = ServingEngine(cfg, params, sc, device=dev)
-        eng.warmup()
-        for i in range(sc.max_batch):
-            eng.submit(Request(i, [int(t) for t in
-                                   rng.randint(0, cfg.vocab_size, 700)]))
-        out = {"card": card, "arch": cfg.name, "quant": args.quant,
-               "kv_format": sc.kv_format,
-               "pool_bytes": eng.pool_bytes_per_shard(),
-               "profiled": profiled}
-        out["prefill"] = _window(eng, 3, profiled)      # 3 chunks of 256
-        if eng.sched.has_prefill_work():
-            raise RuntimeError("prefill did not finish in 3 ticks")
-        out["decode"] = _window(eng, args.ticks, profiled)
-        out["decode"]["active_slots"] = len(eng.sched.decode_slots())
-        print(json.dumps(out), flush=True)
-        del eng
-        torch.cuda.empty_cache()
+    new_tokens = 4 * args.ticks + 8
+    if args.contiguous:
+        # one 1024-token chunk a prompt in both layouts (no max_seq: the
+        # contiguous layout takes none), the paged one's table as wide
+        layouts = (True, False, False, True)
+        base = dict(max_prompt=1024)
+    else:
+        layouts = (True,)
+        base = dict(max_prompt=256, max_seq=2048)
+    chunks = -(-700 // base["max_prompt"])      # prefill ticks a prompt
+    for paged in layouts:
+        sc = ServeConfig(max_batch=8, page_size=16, paged=paged,
+                         max_new_tokens=new_tokens,
+                         kv_format=kv_format(args.kv_bits), **base)
+        rng = np.random.RandomState(0)
+        for profiled in (False, True):
+            eng = ServingEngine(cfg, params, sc, device=dev)
+            eng.warmup()
+            for i in range(sc.max_batch):
+                eng.submit(Request(i, [int(t) for t in
+                                       rng.randint(0, cfg.vocab_size,
+                                                   700)]))
+            out = {"card": card, "arch": cfg.name, "quant": args.quant,
+                   "kv_format": sc.kv_format,
+                   "layout": "paged" if paged else "contiguous",
+                   "max_prompt": sc.max_prompt,
+                   "pool_bytes": eng.pool_bytes_per_shard(),
+                   "profiled": profiled}
+            out["prefill"] = _window(eng, chunks, profiled)
+            if eng.sched.has_prefill_work():
+                raise RuntimeError(f"prefill did not finish in {chunks} "
+                                   "ticks")
+            out["decode"] = _window(eng, args.ticks, profiled)
+            out["decode"]["active_slots"] = len(eng.sched.decode_slots())
+            print(json.dumps(out), flush=True)
+            del eng
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""GQA attention over the paged KV pool.
+"""GQA attention over the paged KV pool or a contiguous cache.
 
 The counterpart of ``repro.models.attention`` for one device.  The
 reference's mesh, ``shard_map`` and ``lshard`` branches collapse away, and
@@ -30,6 +30,17 @@ the pool.
 
 The pool is written in place (:func:`~repro_torch.models.common.
 paged_scatter`, :func:`~repro_torch.models.common.paged_scatter_quant`).
+
+A CONTIGUOUS cache (``pages`` None: {"k", "v"} of (B, cap, KV, dh), the
+reference's ``paged=False`` layout, always of the model's dtype) runs the
+same two kernels.  'prefill' (the whole prompt from row 0, the rows past
+it zeroed) and a fresh chunk run the flash kernel and write the rows
+(:func:`cache_fill`); a resumed chunk and decode write their rows
+(:func:`~repro_torch.models.common.contig_scatter`, no host sync) and run
+the paged kernel through the cache viewed as pages and an identity table
+(:func:`~repro_torch.models.common.contig_pages`), so a contiguous
+dispatch and a paged one at the same page size and table width cut the
+keys into the same splits.  'train' comes with ROADMAP queue 1 item 16.
 """
 from __future__ import annotations
 
@@ -41,10 +52,12 @@ from repro_torch.core.pageformat import FP, format_for_packed
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_flash_decode import (TILE_KEYS,
                                                     paged_flash_decode_partials)
-from repro_torch.models.common import (ParamSpec, broadcast_offset,
-                                       chunk_lengths, chunk_valid_mask, dense,
-                                       paged_scatter, paged_scatter_quant,
-                                       rms_norm, rope)
+from repro_torch.models.common import (ContigView, ParamSpec,
+                                       broadcast_offset, chunk_lengths,
+                                       chunk_valid_mask, contig_fill,
+                                       contig_pages, contig_prefill,
+                                       contig_scatter, dense, paged_scatter,
+                                       paged_scatter_quant, rms_norm, rope)
 
 NEG_INF = -1e30
 # Bytes the float32 partials of one dispatch may take.  Per-page partials
@@ -72,6 +85,14 @@ def attn_specs(cfg) -> dict:
         specs["q_norm"] = ParamSpec((dh,), init="ones", dtype=torch.float32)
         specs["k_norm"] = ParamSpec((dh,), init="ones", dtype=torch.float32)
     return specs
+
+
+def kv_cache_spec(cfg, batch: int, capacity: int) -> dict:
+    """Contiguous layout: (batch, capacity, KV, dh) K and V per layer, a
+    slot's rows at [0, capacity)."""
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    return {"k": ParamSpec((batch, capacity, kv, dh), init="zeros"),
+            "v": ParamSpec((batch, capacity, kv, dh), init="zeros")}
 
 
 def paged_kv_cache_spec(cfg, num_pages: int, page_size: int,
@@ -174,12 +195,43 @@ def _combine_page_partials(m, l, acc):
     return accg / torch.clamp(lg, min=1e-30)[..., None]
 
 
-def _paged_attend(q, k, v, cache, pages, t, ok, qpos, kv_valid, fmt):
+def cache_fill(cache: dict, k_new, v_new, lengths) -> dict:
+    """Write a fresh chunk into rows [0, len) of each slot of a contiguous
+    cache, IN PLACE, and return it.  ``k_new``/``v_new``: (B, S, KV, dh);
+    ``lengths``: (B,) valid counts <= S (0 = slot not admitted: its rows
+    stay as they are).  A pad-and-select, as the reference: rows >= len
+    keep their contents."""
+    len_b = chunk_lengths(lengths, cache["k"].shape[0], k_new.device)
+    ok = chunk_valid_mask(len_b, k_new.shape[1])
+    contig_fill(cache["k"], k_new, ok)
+    contig_fill(cache["v"], v_new, ok)
+    return cache
+
+
+def cache_update(cache: dict, k_new, v_new, index) -> dict:
+    """Write one token's K/V (B, 1, KV, dh) at row ``index`` (scalar or
+    (B,); negative = no write) of each slot of a contiguous cache, IN
+    PLACE, and return it."""
+    b = cache["k"].shape[0]
+    t = broadcast_offset(index, b, k_new.device)[:, None]
+    ok = torch.ones_like(t, dtype=torch.bool)
+    contig_scatter(cache["k"], k_new, t, ok)
+    contig_scatter(cache["v"], v_new, t, ok)
+    return cache
+
+
+def _paged_attend(q, k, v, cache, pages, t, ok, qpos, kv_valid, fmt, view):
     """Scatter the new rows at logical positions ``t`` (where ``ok``),
     quantized when the pool's format ``fmt`` is (None = fp), then attend
-    ``q`` over the slots' cached windows through the table."""
+    ``q`` over the slots' cached windows through the table.  A contiguous
+    cache (``pages`` None) is read through its ``view`` as pages."""
     quant = {}
-    if fmt is None:
+    pools = (cache["k"], cache["v"])
+    if pages is None:
+        contig_scatter(cache["k"], k, t, ok)
+        contig_scatter(cache["v"], v, t, ok)
+        pools, pages = contig_pages(pools, view)
+    elif fmt is None:
         paged_scatter(cache["k"], pages, k, t, ok)
         paged_scatter(cache["v"], pages, v, t, ok)
     else:
@@ -189,16 +241,26 @@ def _paged_attend(q, k, v, cache, pages, t, ok, qpos, kv_valid, fmt):
                             fmt)
         quant = dict(k_scale=cache["k_scale"], v_scale=cache["v_scale"],
                      bits=fmt.bits)
-    m, l, acc = _page_partials(q, cache["k"], cache["v"], pages, qpos,
+    m, l, acc = _page_partials(q, pools[0], pools[1], pages, qpos,
                                kv_valid, **quant)
     o = _combine_page_partials(m, l, acc)
     b, sq = q.shape[:2]
     return o.reshape(b, sq, -1, o.shape[-1]).to(q.dtype)
 
 
+def mode_error(mode: str) -> ValueError:
+    """The rejection of a mode this slice of the port does not serve."""
+    item = {"train": "16, training", "verify": "14, speculative decoding"}
+    return ValueError(f"mode {mode!r}: this slice of the port serves "
+                      "'prefill', 'chunk' and 'decode'"
+                      + (f" (ROADMAP queue 1 item {item[mode]})"
+                         if mode in item else ""))
+
+
 def apply_attention(p, x: torch.Tensor, cfg, *, cache: dict, mode: str,
-                    pos, pages: torch.Tensor,
+                    pos, pages: Optional[torch.Tensor] = None,
                     offset: Optional[torch.Tensor] = None,
+                    view: Optional[ContigView] = None,
                     ) -> Tuple[torch.Tensor, dict]:
     """Attention sublayer: QKV projections, RoPE, attention, out proj.
 
@@ -206,10 +268,13 @@ def apply_attention(p, x: torch.Tensor, cfg, *, cache: dict, mode: str,
     (0 = inactive slot).  Without ``offset`` the chunk's tokens sit at rows
     [0, len); with a (B,) ``offset`` at [offset, offset + len), attending
     the cached history [0, offset) too.  mode 'decode': ``pos`` is the (B,)
-    row of each slot's token (-1 = inactive slot).  ``pages``: (B, P) int32
-    page table into ``cache`` = {"k", "v"} pools of (N, ps, KV, dh) (a
-    quantized pool: int8 pools and their ``k_scale``/``v_scale``), which
-    are updated in place and returned."""
+    row of each slot's token (-1 = inactive slot).  mode 'prefill'
+    (contiguous cache only): the whole prompt from row ``pos`` (0), its
+    K/V padded into the cache.  ``pages``: (B, P) int32 page table into
+    ``cache`` = {"k", "v"} pools of (N, ps, KV, dh) (a quantized pool:
+    int8 pools and their ``k_scale``/``v_scale``); None for a contiguous
+    cache {"k", "v"} of (B, cap, KV, dh), read through ``view``.  The
+    cache is updated in place and returned."""
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dev = x.device
@@ -226,34 +291,43 @@ def apply_attention(p, x: torch.Tensor, cfg, *, cache: dict, mode: str,
         off_b = (torch.zeros((b,), dtype=torch.int32, device=dev)
                  if offset is None else broadcast_offset(offset, b, dev))
         positions = off_b[:, None] + ar
-    elif mode == "decode":
-        if s != 1:
+    elif mode in ("decode", "prefill"):
+        if mode == "decode" and s != 1:
             raise ValueError(f"mode='decode' takes one token per slot, "
                              f"got {s}")
+        if mode == "prefill" and pages is not None:
+            raise ValueError("mode='prefill' writes a contiguous cache; "
+                             "a paged one takes mode='chunk'")
         pos_b = broadcast_offset(pos, b, dev)
         positions = torch.clamp(pos_b[:, None] + ar, min=0)
     else:
-        raise ValueError(f"mode {mode!r}: this slice of the port serves "
-                         "'chunk' and 'decode' (ROADMAP queue 1 item 6)")
+        raise mode_error(mode)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    fmt = cache_page_format(cache, dh)
-    if mode == "chunk" and offset is None and fmt is None:
+    fmt = None if pages is None else cache_page_format(cache, dh)
+    if mode == "prefill":
+        o = flash_attention(q, k, v, kv_valid=s)
+        contig_prefill(cache["k"], k)
+        contig_prefill(cache["v"], v)
+    elif mode == "chunk" and offset is None and fmt is None:
         # fresh chunk: one causal pass over the padded chunk (padded
         # queries sit after every valid token, so they never leak into
-        # valid outputs), then the valid rows go into the pool.  A
+        # valid outputs), then the valid rows go into the cache.  A
         # quantized pool takes the next branch at offset 0 instead, so
         # that the chunk's own rows are read back quantized too.
         o = flash_attention(q, k, v, kv_valid=s)
-        paged_scatter(cache["k"], pages, k, positions, ok)
-        paged_scatter(cache["v"], pages, v, positions, ok)
+        if pages is None:
+            cache_fill(cache, k, v, len_b)
+        else:
+            paged_scatter(cache["k"], pages, k, positions, ok)
+            paged_scatter(cache["v"], pages, v, positions, ok)
     elif mode == "chunk":
         o = _paged_attend(q, k, v, cache, pages, positions, ok, positions,
-                          off_b + len_b, fmt)
+                          off_b + len_b, fmt, view)
     else:
         t = pos_b[:, None]
         o = _paged_attend(q, k, v, cache, pages, t, t >= 0, t, pos_b + 1,
-                          fmt)
+                          fmt, view)
     y = dense(o.reshape(b, s, h * dh), p["wo"], cfg.quant)
     return y, cache

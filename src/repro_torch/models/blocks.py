@@ -7,19 +7,20 @@ the reference's tree (``ln1``, ``attn``, ``ln2``, ``ffn``), so the weight
 bridge maps leaves one to one: raw weights as frozen parameters, and the
 packed weights of a quantized model as :class:`~repro_torch.kernels.ops.
 PackedWeight` submodules.  :data:`BLOCKS` maps a block kind to its specs,
-its paged cache spec and its module.
+its contiguous and paged cache specs and its module.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, NamedTuple
 
 import torch
 from torch import nn
 
 from repro_torch.kernels.ops import PackedWeight
 from repro_torch.models.attention import (apply_attention, attn_specs,
-                                          paged_kv_cache_spec)
-from repro_torch.models.mla import apply_mla, mla_specs, paged_mla_cache_spec
+                                          kv_cache_spec, paged_kv_cache_spec)
+from repro_torch.models.mla import (apply_mla, mla_cache_spec, mla_specs,
+                                    paged_mla_cache_spec)
 from repro_torch.models.common import ParamSpec, dense, layer_norm, rms_norm
 
 
@@ -114,10 +115,11 @@ class AttnMlpBlock(nn.Module):
         return {name: getattr(self, name).tree()
                 for name in ("ln1", "attn", "ln2", "ffn")}
 
-    def forward(self, x, cache, mode, pos, pages, offset):
+    def forward(self, x, cache, mode, pos, pages, offset, view):
         a, cache = self.attend(
             self.attn, apply_norm(self.ln1, x, self.cfg), self.cfg,
-            cache=cache, mode=mode, pos=pos, pages=pages, offset=offset)
+            cache=cache, mode=mode, pos=pos, pages=pages, offset=offset,
+            view=view)
         x = x + a
         x = x + apply_mlp(self.ffn, apply_norm(self.ln2, x, self.cfg),
                           self.cfg)
@@ -138,9 +140,19 @@ class MlaMlpBlock(AttnMlpBlock):
     attend = staticmethod(apply_mla)
 
 
-# block kind -> (param specs, paged cache spec (cfg, num_pages, page_size,
-# fmt), module)
+class Block(NamedTuple):
+    """A block kind: its param specs (cfg), contiguous cache spec (cfg,
+    batch, capacity), paged cache spec (cfg, num_pages, page_size, fmt)
+    and module."""
+    specs: Callable
+    cache_spec: Callable
+    paged_cache_spec: Callable
+    module: type
+
+
 BLOCKS = {
-    "attn_mlp": (attn_mlp_specs, paged_kv_cache_spec, AttnMlpBlock),
-    "mla_mlp": (mla_mlp_specs, paged_mla_cache_spec, MlaMlpBlock),
+    "attn_mlp": Block(attn_mlp_specs, kv_cache_spec, paged_kv_cache_spec,
+                      AttnMlpBlock),
+    "mla_mlp": Block(mla_mlp_specs, mla_cache_spec, paged_mla_cache_spec,
+                     MlaMlpBlock),
 }

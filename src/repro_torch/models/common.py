@@ -13,7 +13,10 @@ ops.PackedWeight` (made by ``quantize_for_serving``) runs the packed matmul
 kernels.  Norms, RoPE and the SiLU gate are computed in float32 and cast
 back, as the reference does.  ``paged_scatter`` (and its quantized twin
 ``paged_scatter_quant``) writes the pool IN PLACE (JAX returns a new
-array; here the pool is a tensor the engine owns).
+array; here the pool is a tensor the engine owns), and so does
+``contig_scatter`` a contiguous (B, cap, ...) cache.  ``contig_pages``
+views a contiguous cache as a pool of pages and an identity page table,
+so that the paged kernels read it unchanged.
 """
 from __future__ import annotations
 
@@ -116,6 +119,92 @@ def broadcast_offset(offset, batch: int, device=None) -> torch.Tensor:
     scalar)."""
     off = torch.as_tensor(offset, dtype=torch.int32, device=device)
     return torch.broadcast_to(off.reshape(-1), (batch,)).contiguous()
+
+
+def contig_scatter(buf: torch.Tensor, rows: torch.Tensor, t: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """Scatter per-slot rows into a CONTIGUOUS (B, cap, *rest) cache at
+    logical positions ``t`` (B, S), IN PLACE, and return the buffer.
+    Rows that are invalid, negative or at or past ``cap`` are dropped, as
+    the reference's ``mode="drop"`` scatter drops them.
+
+    No host sync: every row goes to flat row ``b * cap + t mod cap``, and
+    a dropped row writes back the value it finds there.  So the S
+    positions of a slot must differ modulo ``cap``, as the consecutive
+    positions of one chunk (S <= cap) or one decode row do."""
+    bsz, cap = buf.shape[:2]
+    if rows.shape[1] > cap:
+        raise ValueError(f"contig_scatter: {rows.shape[1]} rows a slot, "
+                         f"more than the cache's {cap}")
+    rest = tuple(buf.shape[2:])
+    t = t.to(torch.int64)
+    ok = valid & (t >= 0) & (t < cap)
+    slot = torch.arange(bsz, dtype=torch.int64, device=buf.device)[:, None]
+    dest = (slot * cap + torch.remainder(t, cap)).reshape(-1)
+    flat = buf.view((bsz * cap,) + rest)
+    new = rows.reshape((-1,) + rest).to(buf.dtype)
+    keep = ok.reshape((-1,) + (1,) * len(rest))
+    flat[dest] = torch.where(keep, new, flat[dest])
+    return buf
+
+
+def contig_fill(buf: torch.Tensor, rows: torch.Tensor,
+                ok: torch.Tensor) -> None:
+    """Pad-and-select a fresh chunk into a CONTIGUOUS (B, cap, *rest)
+    cache, IN PLACE: row i of slot b takes ``rows[b, i]`` where ``ok[b,
+    i]`` (B, S) and keeps its contents elsewhere, rows at or past S
+    included."""
+    s = rows.shape[1]
+    if s > buf.shape[1]:
+        raise ValueError(f"contig_fill: a {s}-row chunk, more than the "
+                         f"cache's {buf.shape[1]} rows")
+    head = buf[:, :s]
+    mask = ok.reshape(tuple(ok.shape) + (1,) * (buf.dim() - 2))
+    head.copy_(torch.where(mask, rows.to(head.dtype), head))
+
+
+def contig_prefill(buf: torch.Tensor, rows: torch.Tensor) -> None:
+    """'prefill': a CONTIGUOUS (B, cap, *rest) cache becomes the prompt's
+    rows (B, S, *rest) padded with zeros to its capacity, every slot's,
+    as the reference's padded cache (in place)."""
+    s = rows.shape[1]
+    if s > buf.shape[1]:
+        raise ValueError(f"contig_prefill: a {s}-token prompt, more than "
+                         f"the cache's {buf.shape[1]} rows")
+    buf[:, :s] = rows.to(buf.dtype)
+    buf[:, s:] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ContigView:
+    """How the paged kernels read a contiguous cache: pages of
+    ``page_size`` rows, and the first ``rows`` rows of each slot (None =
+    the whole capacity).  The serving engine passes its page size and
+    ``slot_rows``, so that a contiguous dispatch cuts the page axis into
+    the splits of the paged engine's table."""
+    page_size: int = 16
+    rows: Optional[int] = None
+
+
+def contig_pages(bufs, view: Optional[ContigView]):
+    """Contiguous (B, cap, *rest) caches as the paged kernels read them:
+    each a pool of B*cap/page_size pages (a reshape, no copy), and one
+    identity table ``tbl[b, j] = b*cap/page_size + j`` (B, P) int32 over
+    the first P = ceil(rows / page_size) pages of each slot.  Returns
+    (pools, tbl)."""
+    view = view or ContigView()
+    bsz, cap = bufs[0].shape[:2]
+    ps = view.page_size
+    if ps <= 0 or cap % ps:
+        raise ValueError(f"contig_pages: page size {ps} does not divide "
+                         f"the cache's {cap} rows")
+    n_pg = cap // ps
+    rows = cap if view.rows is None else min(view.rows, cap)
+    width = max(1, -(-rows // ps))
+    pools = [b.view((bsz * n_pg, ps) + tuple(b.shape[2:])) for b in bufs]
+    tbl = torch.arange(bsz * n_pg, dtype=torch.int32,
+                       device=bufs[0].device).view(bsz, n_pg)[:, :width]
+    return pools, tbl.contiguous()
 
 
 def paged_gather(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Multi-head Latent Attention (DeepSeek-V2) over the paged latent pool.
+"""Multi-head Latent Attention (DeepSeek-V2) over the paged latent pool
+or a contiguous latent cache.
 
-The counterpart of ``repro.models.mla`` for paged serving on one device.
+The counterpart of ``repro.models.mla`` for serving on one device.
 The cache keeps one latent row per token and layer, the normalised
 ``c_kv`` (kv_lora_rank wide) followed by the roped ``k_rope``
 (qk_rope_dim wide): 576 values at deepseek-v2's widths, against 2 * H *
@@ -29,10 +30,17 @@ resumed chunk gathers and dequantizes the window before expanding it; a
 fresh chunk runs as a resume at offset 0, as the reference's does, so
 that every latent row a query sees comes back from the pool.
 
+A CONTIGUOUS latent cache (``pages`` None: a ``ckv`` of (B, cap, r +
+dr), the reference's ``paged=False`` layout) runs the same kernels:
+'prefill' and a fresh chunk the naive form on the flash kernel, their
+latent rows written by pad-and-select; a resumed chunk and decode write
+their rows (``contig_scatter``) and read the cache as pages through an
+identity table (``contig_pages``), a resumed chunk expanding that window
+as above and decode running the MLA kernel on it.
+
 The small absorbed einsums and every projection stay ``torch`` matmuls,
-as the reference leaves them to XLA outside its kernels.  The pool is
-written in place.  The reference's contiguous 'prefill'/'train' modes
-are not in this slice and raise, naming the ROADMAP item.
+as the reference leaves them to XLA outside its kernels.  The cache is
+written in place.  'train' comes with ROADMAP queue 1 item 16.
 """
 from __future__ import annotations
 
@@ -45,12 +53,14 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_flash_decode import mla_paged_decode_partials
 from repro_torch.models.attention import (_combine_page_partials,
                                           _page_partials, cache_page_format,
-                                          tile_pages_per_split, tile_split)
-from repro_torch.models.common import (ParamSpec, broadcast_offset,
-                                       chunk_lengths, chunk_valid_mask, dense,
-                                       paged_gather, paged_gather_quant,
-                                       paged_scatter, paged_scatter_quant,
-                                       rms_norm, rope)
+                                          mode_error, tile_split)
+from repro_torch.models.common import (ContigView, ParamSpec,
+                                       broadcast_offset, chunk_lengths,
+                                       chunk_valid_mask, contig_fill,
+                                       contig_pages, contig_prefill,
+                                       contig_scatter, dense, paged_gather,
+                                       paged_gather_quant, paged_scatter,
+                                       paged_scatter_quant, rms_norm, rope)
 
 
 def mla_dims(cfg):
@@ -69,6 +79,13 @@ def mla_specs(cfg) -> dict:
         "w_uv": ParamSpec((r, h * dv), quantize=True),
         "w_o": ParamSpec((h * dv, d), quantize=True),
     }
+
+
+def mla_cache_spec(cfg, batch: int, capacity: int) -> dict:
+    """Contiguous layout: a (batch, capacity, r + dr) latent cache per
+    layer, a slot's rows at [0, capacity)."""
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    return {"ckv": ParamSpec((batch, capacity, r + dr), init="zeros")}
 
 
 def paged_mla_cache_spec(cfg, num_pages: int, page_size: int,
@@ -90,13 +107,20 @@ def paged_mla_cache_spec(cfg, num_pages: int, page_size: int,
     }
 
 
-def _write(cache, pages, entry, t, ok, fmt):
-    """Scatter latent rows into the pool (quantized when it is)."""
+def _write(cache, pages, entry, t, ok, fmt, view):
+    """Scatter latent rows into the pool (quantized when it is), or into
+    a contiguous cache (``pages`` None).  Returns the pool and table the
+    kernels read: for a contiguous cache, its ``view`` as pages."""
+    if pages is None:
+        contig_scatter(cache["ckv"], entry, t, ok)
+        (pool,), pages = contig_pages((cache["ckv"],), view)
+        return pool, pages
     if fmt is None:
         paged_scatter(cache["ckv"], pages, entry, t, ok)
     else:
         paged_scatter_quant(cache["ckv"], cache["ckv_scale"], pages, entry,
                             t, ok, fmt)
+    return cache["ckv"], pages
 
 
 def _compress(p, x, cfg):
@@ -119,15 +143,15 @@ def _expand(p, c, k_rope, cfg):
     return k.contiguous(), v.contiguous()
 
 
-def _resume(p, qq, cache, pages, entry, t, ok, off_b, len_b, cfg, fmt):
+def _resume(p, qq, cache, pages, entry, t, ok, off_b, len_b, cfg, fmt,
+            view):
     """Resumed chunk: scatter the chunk's latent rows, expand the slot's
     cached window (history and this chunk; dequantized first from a
     quantized pool) through W_UK / W_UV, and attend it with absolute
     causal masking through the paged kernel."""
     b, s = qq.shape[:2]
     r = cfg.kv_lora_rank
-    _write(cache, pages, entry, t, ok, fmt)
-    pool = cache["ckv"]
+    pool, pages = _write(cache, pages, entry, t, ok, fmt, view)
     buf = (paged_gather(pool, pages) if fmt is None else     # (B, P*ps, r+dr)
            paged_gather_quant(pool, cache["ckv_scale"], pages, fmt,
                               entry.dtype))
@@ -148,39 +172,29 @@ def _resume(p, qq, cache, pages, entry, t, ok, off_b, len_b, cfg, fmt):
     return o.reshape(b, s, cfg.n_heads, -1).to(qq.dtype)
 
 
-def mla_decode_pages_per_split(page_size: int, p: int) -> int:
-    """Pages a split of MLA decode's partials covers: one key tile of
-    the bf16 kernel, TILE_KEYS // ``page_size`` pages (4 at page
-    16, 2 at page 32), at least 1 and at most the table's ``p``.
-
-    It depends on the page size and the table width alone (no device,
-    dtype or config field), so the CPU and the card cut the page axis
-    alike.  One page a split would write per-page float32 partials of
-    H x r (32 KB a page at H 16, r 512) against an 18 KB bf16 page read;
-    one tile a split writes a quarter of them at page 16 and fills the
-    tile's 64 keys.  Of 1, 2, 4 and 8 pages a split at page 16, the
-    bf16 kernel is fastest at 4 on an H100 (``chip_smoke.py``'s
-    ``mla_sweep``, PERF.md §6).  :func:`decode_split` raises it where
-    the partials would pass their memory budget.  GQA decode takes the
-    same tile: this is
-    :func:`~repro_torch.models.attention.tile_pages_per_split`."""
-    return tile_pages_per_split(page_size, p)
-
-
 def decode_split(page_size: int, b: int, sq: int, h: int, p: int,
                  r: int) -> int:
-    """The pages a split MLA decode runs at: one key tile
-    (:func:`mla_decode_pages_per_split`), or more where the float32
+    """The pages a split MLA decode runs at: one key tile of the bf16
+    kernel (:func:`~repro_torch.models.attention.tile_pages_per_split`,
+    4 pages at page 16, 2 at page 32), or more where the float32
     partials of (``b``, ``sq``, ``h``) query rows of width ``r`` over
     ``p`` pages would otherwise pass ``PARTIALS_BYTES_BUDGET``, as
     ``_pages_per_split`` caps them (at 32 k tokens, page 16, B 32: 32
     pages a split, 64 MiB a layer, not 512 MiB): GQA decode's
-    :func:`~repro_torch.models.attention.tile_split` at width ``r``."""
+    :func:`~repro_torch.models.attention.tile_split` at width ``r``.
+
+    It reads the page size and table width alone (no device or dtype),
+    so the CPU and the card cut the page axis alike.  One page a split
+    would write per-page float32 partials of H x r (32 KB a page at H 16,
+    r 512) against an 18 KB bf16 page read; one tile a split writes a
+    quarter of them at page 16.  Of 1, 2, 4 and 8 pages a split at page
+    16, the bf16 kernel is fastest at 4 on an H100 (``chip_smoke.py``'s
+    ``mla_sweep``, PERF.md §6)."""
     return tile_split(page_size, b, sq, h, p, r)
 
 
 def _decode(p, q_nope, q_rope, cache, pages, entry, pos_b, x_dtype, cfg,
-            fmt):
+            fmt, view):
     """Decode: scatter the latent row at ``pos`` (-1 = no write), absorb
     W_UK into the query, attend the latent pool in the compressed space
     with the MLA kernel (its quantized entry on a quantized pool),
@@ -189,14 +203,15 @@ def _decode(p, q_nope, q_rope, cache, pages, entry, pos_b, x_dtype, cfg,
     b, s, h, _ = q_nope.shape
     r = cfg.kv_lora_rank
     dn, dr, dv = mla_dims(cfg)
-    _write(cache, pages, entry, pos_b[:, None], (pos_b >= 0)[:, None], fmt)
+    pool, pages = _write(cache, pages, entry, pos_b[:, None],
+                         (pos_b >= 0)[:, None], fmt, view)
     quant = ({} if fmt is None else
              dict(scale_pool=cache["ckv_scale"], bits=fmt.bits))
     w_uk = p["w_uk"].reshape(r, h, dn)
     q_c = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_uk.float())
-    c = decode_split(cache["ckv"].shape[1], b, s, h, pages.shape[1], r)
+    c = decode_split(pool.shape[1], b, s, h, pages.shape[1], r)
     m, l, acc = mla_paged_decode_partials(
-        cache["ckv"], q_c.to(x_dtype).contiguous(), q_rope.contiguous(),
+        pool, q_c.to(x_dtype).contiguous(), q_rope.contiguous(),
         pages, pos_b, r, dn + dr, pages_per_split=c, **quant)
     ctx_c = _combine_page_partials(m, l, acc)           # (B, 1, H, r) f32
     w_uv = p["w_uv"].reshape(r, h, dv)
@@ -204,17 +219,22 @@ def _decode(p, q_nope, q_rope, cache, pages, entry, pos_b, x_dtype, cfg,
 
 
 def apply_mla(p, x: torch.Tensor, cfg, *, cache: dict, mode: str, pos,
-              pages: torch.Tensor, offset: Optional[torch.Tensor] = None,
+              pages: Optional[torch.Tensor] = None,
+              offset: Optional[torch.Tensor] = None,
+              view: Optional[ContigView] = None,
               ) -> Tuple[torch.Tensor, dict]:
     """MLA sublayer over the paged latent pool ``cache`` = {"ckv": (N, ps,
     r + dr)} (a quantized pool: an int8 ``ckv`` and its ``ckv_scale``),
-    updated in place and returned.
+    or with ``pages`` None a contiguous ``ckv`` of (B, cap, r + dr) read
+    through ``view``; updated in place and returned.
 
     mode 'chunk': ``pos`` is the (B,) valid length of a right-padded chunk
     (0 = inactive slot); without ``offset`` its tokens sit at rows [0,
     len), with a (B,) ``offset`` at [offset, offset + len).  mode
     'decode': ``pos`` is the (B,) row of each slot's token (-1 = inactive
-    slot).  ``pages``: (B, P) int32 page table."""
+    slot).  mode 'prefill' (contiguous cache only): the whole prompt
+    from row ``pos`` (0), its latent rows padded into the cache.
+    ``pages``: (B, P) int32 page table."""
     b, s, _ = x.shape
     h = cfg.n_heads
     dn, dr, dv = mla_dims(cfg)
@@ -226,15 +246,17 @@ def apply_mla(p, x: torch.Tensor, cfg, *, cache: dict, mode: str, pos,
         off_b = (torch.zeros((b,), dtype=torch.int32, device=dev)
                  if offset is None else broadcast_offset(offset, b, dev))
         positions = off_b[:, None] + ar
-    elif mode == "decode":
-        if s != 1:
+    elif mode in ("decode", "prefill"):
+        if mode == "decode" and s != 1:
             raise ValueError(f"mode='decode' takes one token per slot, "
                              f"got {s}")
+        if mode == "prefill" and pages is not None:
+            raise ValueError("mode='prefill' writes a contiguous cache; "
+                             "a paged one takes mode='chunk'")
         pos_b = broadcast_offset(pos, b, dev)
         positions = torch.clamp(pos_b[:, None] + ar, min=0)
     else:
-        raise ValueError(f"mode {mode!r}: this slice of the port serves "
-                         "'chunk' and 'decode' (ROADMAP queue 1 item 6)")
+        raise mode_error(mode)
 
     q = dense(x, p["w_q"], cfg.quant).reshape(b, s, h, dn + dr)
     q_nope = q[..., :dn]
@@ -243,22 +265,30 @@ def apply_mla(p, x: torch.Tensor, cfg, *, cache: dict, mode: str, pos,
     k_rope = rope(k_r[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
     entry = torch.cat([c_kv, k_rope], dim=-1)           # (B, S, r + dr)
 
-    fmt = cache_page_format(cache, cfg.kv_lora_rank + dr)
-    if mode == "chunk" and offset is None and fmt is None:
-        # fresh chunk: naive form over the chunk's own rows (padded
-        # queries sit after every valid token, so they never leak into
-        # valid outputs), then the valid latent rows go into the pool.  A
-        # quantized pool takes the next branch at offset 0 instead.
+    fmt = (None if pages is None else
+           cache_page_format(cache, cfg.kv_lora_rank + dr))
+    if mode == "prefill" or (mode == "chunk" and offset is None
+                             and fmt is None):
+        # the whole prompt, or a fresh chunk: naive form over the rows of
+        # this dispatch (padded queries sit after every valid token, so
+        # they never leak into valid outputs), then the valid latent rows
+        # go into the cache.  A quantized pool takes the next branch at
+        # offset 0 instead.
         k, v = _expand(p, c_kv, k_rope, cfg)
         qq = torch.cat([q_nope, q_rope], dim=-1).contiguous()
         o = flash_attention(qq, k, v, kv_valid=s)
-        paged_scatter(cache["ckv"], pages, entry, positions, ok)
+        if mode == "prefill":
+            contig_prefill(cache["ckv"], entry)
+        elif pages is None:
+            contig_fill(cache["ckv"], entry, ok)
+        else:
+            paged_scatter(cache["ckv"], pages, entry, positions, ok)
     elif mode == "chunk":
         qq = torch.cat([q_nope, q_rope], dim=-1).contiguous()
         o = _resume(p, qq, cache, pages, entry, positions, ok, off_b, len_b,
-                    cfg, fmt)
+                    cfg, fmt, view)
     else:
         o = _decode(p, q_nope, q_rope, cache, pages, entry, pos_b, x.dtype,
-                    cfg, fmt)
+                    cfg, fmt, view)
     y = dense(o.reshape(b, s, h * dv), p["w_o"], cfg.quant)
     return y, cache

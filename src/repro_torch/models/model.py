@@ -1,6 +1,6 @@
 """LM assembly: embedding -> blocks -> final norm -> lm_head.
 
-The counterpart of ``repro.models.model`` for the paged serving path.
+The counterpart of ``repro.models.model`` for serving.
 The reference scans stacked parameters with ``lax.scan``; the port keeps
 one block module per layer (:data:`~repro_torch.models.blocks.BLOCKS`) in
 an ``nn.ModuleList`` and loops over it.  The port serves a single scan of
@@ -13,12 +13,20 @@ for GQA, ``ckv`` (layers, num_pages, page_size, r + dr) for MLA, so later
 swap and wire slices move the same bytes.  A quantized ``kv_format``
 stores those pools as int8 (int4 packed two a byte) with (layers,
 num_pages, page_size) float32 scale leaves ``k_scale``/``v_scale`` or
-``ckv_scale``.  ``forward`` updates the pools in place.
+``ckv_scale``.  The contiguous cache (``init_cache``, the reference's
+``paged=False`` layout) keeps per layer a (layers, B, cap, KV, dh) ``k``
+/ ``v``, or a (layers, B, cap, r + dr) ``ckv``, of the model's dtype,
+``cap`` the prompt length plus ``decode_margin`` rounded up to 256
+(``cache_capacity``); ``forward`` takes it with ``pages`` None and reads
+it through a ``view`` (:class:`~repro_torch.models.common.ContigView`).
+``forward`` updates either cache in place.
 
-  mode='chunk'  — chunked prefill: ``pos`` is the (B,) valid length of a
-                  right-padded chunk (0 = inactive slot); with ``offset``
-                  the chunk is RESUMED at rows [offset, offset + len)
-  mode='decode' — one token per slot at row ``pos`` (B,) (-1 = inactive)
+  mode='prefill' — the whole prompt from row 0, the contiguous cache
+                   becoming its rows padded with zeros
+  mode='chunk'   — chunked prefill: ``pos`` is the (B,) valid length of a
+                   right-padded chunk (0 = inactive slot); with ``offset``
+                   the chunk is RESUMED at rows [offset, offset + len)
+  mode='decode'  — one token per slot at row ``pos`` (B,) (-1 = inactive)
 
 :func:`quantize_for_serving` packs every quantize-eligible weight (the
 attention and MLP projections and ``lm_head``) into a
@@ -36,8 +44,9 @@ from torch import nn
 from repro_torch.core.pageformat import get_format
 from repro_torch.kernels.ops import PackedWeight, prepare_weight
 from repro_torch.models.blocks import BLOCKS, apply_norm, norm_specs
-from repro_torch.models.common import (ParamSpec, dense, embed_lookup,
-                                       materialize, require_device)
+from repro_torch.models.common import (ContigView, ParamSpec, dense,
+                                       embed_lookup, materialize,
+                                       require_device)
 from repro_torch.models.config import ArchConfig
 
 
@@ -63,7 +72,7 @@ def _n_layers(cfg: ArchConfig) -> int:
 
 def param_specs(cfg: ArchConfig) -> dict:
     d, vp = cfg.d_model, cfg.padded_vocab
-    block_specs = BLOCKS[_block_kind(cfg)][0]
+    block_specs = BLOCKS[_block_kind(cfg)].specs
     return {
         "embed": ParamSpec((vp, d), init="embed", scale=0.02),
         "blocks": [block_specs(cfg) for _ in range(_n_layers(cfg))],
@@ -72,19 +81,30 @@ def param_specs(cfg: ArchConfig) -> dict:
     }
 
 
-def cache_specs(cfg: ArchConfig, num_pages: int, page_size: int,
+def cache_specs(cfg: ArchConfig, batch: int, capacity: int, *,
+                num_pages: Optional[int] = None,
+                page_size: Optional[int] = None,
                 kv_format: str = "fp") -> list:
-    """Paged cache spec: one stage of stacked (layers, ...) pools.
-    ``kv_format`` picks the page storage format
+    """Cache spec: one stage of stacked (layers, ...) leaves, contiguous
+    (batch, capacity, ...) or, with ``num_pages`` / ``page_size``, paged
+    pools.  ``kv_format`` picks the page storage format of a paged cache
     (:mod:`repro_torch.core.pageformat`): "fp" pools of the model's
     dtype, or "int8"/"int4" int8 pools with float32 row-scale leaves;
     each leaf keeps its own dtype."""
     fmt = get_format(kv_format)
     n = _n_layers(cfg)
-    pool_spec = BLOCKS[_block_kind(cfg)][1]
+    block = BLOCKS[_block_kind(cfg)]
+    spec = (block.cache_spec(cfg, batch, capacity) if num_pages is None
+            else block.paged_cache_spec(cfg, num_pages, page_size, fmt))
     return [{name: ParamSpec((n,) + s.shape, init=s.init, dtype=s.dtype)
-             for name, s in pool_spec(cfg, num_pages, page_size,
-                                      fmt).items()}]
+             for name, s in spec.items()}]
+
+
+def cache_capacity(cfg: ArchConfig, prompt_len: int) -> int:
+    """Rows a slot of the contiguous cache holds: ``prompt_len`` plus
+    ``decode_margin``, rounded up to a multiple of 256."""
+    cap = prompt_len + cfg.decode_margin
+    return ((cap + 255) // 256) * 256
 
 
 class Transformer(nn.Module):
@@ -96,7 +116,7 @@ class Transformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Parameter(leaves["embed"], requires_grad=False)
-        block = BLOCKS[_block_kind(cfg)][2]
+        block = BLOCKS[_block_kind(cfg)].module
         self.blocks = nn.ModuleList(block(cfg, b) for b in leaves["blocks"])
         self.final_norm = nn.ParameterDict(
             {k: nn.Parameter(v, requires_grad=False)
@@ -117,19 +137,29 @@ class Transformer(nn.Module):
 
 
 def forward(params: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
-            cache: list, mode: str, pos,
-            pages: torch.Tensor, offset: Optional[torch.Tensor] = None,
+            cache: list, mode: str, pos=0,
+            pages: Optional[torch.Tensor] = None,
+            offset: Optional[torch.Tensor] = None,
+            view: Optional[ContigView] = None,
             ) -> Tuple[torch.Tensor, list, float]:
     """Returns (logits (B, S, padded_vocab), cache, aux_loss).
 
-    ``cache`` is the paged cache of :func:`init_paged_cache` and is
-    updated in place; ``pages`` the (B, P) int32 page table; ``offset``
-    the (B,) int32 start rows of a resumed chunk (mode='chunk' only)."""
+    ``cache`` is the paged cache of :func:`init_paged_cache` with
+    ``pages`` its (B, P) int32 page table, or the contiguous cache of
+    :func:`init_cache` with ``pages`` None, read by the paged kernels
+    through ``view`` (default: page 16, the whole capacity); it is
+    updated in place.  ``offset``: the (B,) int32 start rows of a
+    resumed chunk (mode='chunk' only).  Mode 'train' (no cache) comes
+    with ROADMAP queue 1 item 16."""
+    if cache is None:
+        raise ValueError(f"forward(mode={mode!r}) needs a cache: the "
+                         "cacheless 'train' forward comes with ROADMAP "
+                         "queue 1 item 16")
     x = embed_lookup(params.embed, inputs)
     stage = cache[0]
     for i, block in enumerate(params.blocks):
         layer = {name: pool[i] for name, pool in stage.items()}
-        x, _ = block(x, layer, mode, pos, pages, offset)
+        x, _ = block(x, layer, mode, pos, pages, offset, view)
     x = apply_norm(params.final_norm, x, cfg)
     logits = dense(x, params.lm_head, cfg.quant)
     return logits, cache, 0.0
@@ -157,6 +187,17 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                                               cfg.dtype, dev))
 
 
+def init_cache(cfg: ArchConfig, batch: int, prompt_len: int, *,
+               device="cuda") -> List[Dict[str, torch.Tensor]]:
+    """Zeroed contiguous cache: per stage, (layers, batch, cap, ...)
+    leaves of the model's dtype, cap = ``cache_capacity(cfg,
+    prompt_len)``."""
+    dev = require_device(device)
+    cap = cache_capacity(cfg, prompt_len)
+    return _materialize_tree(cache_specs(cfg, batch, cap), None, cfg.dtype,
+                             dev)
+
+
 def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int, *,
                      kv_format: str = "fp",
                      device="cuda") -> List[Dict[str, torch.Tensor]]:
@@ -165,8 +206,10 @@ def init_paged_cache(cfg: ArchConfig, num_pages: int, page_size: int, *,
     ``kv_format`` int8 pools beside (layers, num_pages, page_size)
     float32 scales."""
     dev = require_device(device)
-    return _materialize_tree(cache_specs(cfg, num_pages, page_size,
-                                         kv_format), None, cfg.dtype, dev)
+    return _materialize_tree(cache_specs(cfg, 0, 0, num_pages=num_pages,
+                                         page_size=page_size,
+                                         kv_format=kv_format),
+                             None, cfg.dtype, dev)
 
 
 def _n_quantizable(spec) -> int:

@@ -8,6 +8,13 @@ has no counterpart: the CUDA kernels are always on.  ``kv_format`` picks
 the pool's page storage (:data:`~repro_torch.core.pageformat.KV_FORMATS`):
 "fp" pages of the model's dtype, or "int8"/"int4" pages with one float32
 scale a row, served by the quantized paged kernels.
+
+``paged=False`` serves the contiguous cache: one (cap, ...) region a
+slot, ``slot_rows = max_prompt + max_new_tokens`` rows of it in use, with
+the reference's rejections of what only the paged engine has.  Its
+``page_size`` is the page of the view through which the paged kernels
+read that cache, so it must divide the cache's capacity (a multiple of
+256; on the card also a multiple of 16).
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ class ServeConfig:
     temperature: float = 0.0        # 0 = greedy (the only mode served)
     eos_id: int = -1                # -1 = never
     strict_iotlb: bool = True       # False: record fault, reject admission
-    paged: bool = True              # page the KV cache (always, here)
+    paged: bool = True              # page the KV cache (False: contiguous)
     page_size: int = 16             # cache rows per page
     num_pages: Optional[int] = None  # pool pages; None = one full window
     #                                  per slot
@@ -84,8 +91,6 @@ class ServeConfig:
             bad("temperature", f"must be >= 0, got {self.temperature}")
         if self.temperature > 0:
             later("temperature", self.temperature, 7, "temperature sampling")
-        if not self.paged:
-            later("paged", self.paged, 6, "the contiguous cache layout")
         if self.preemption not in ("swap", "terminate"):
             bad("preemption", "must be 'swap' or 'terminate', "
                 f"got {self.preemption!r}")
@@ -102,8 +107,23 @@ class ServeConfig:
         if self.decode_sharing:
             later("decode_sharing", self.decode_sharing, 14,
                   "decode-token twin sharing")
+        if not self.paged:
+            # the reference's paged=False rejections: its decode_sharing,
+            # spec_draft and host_pool_pages ones come after the item-14
+            # ``later`` calls above, which reject those fields for either
+            # layout first, under the same field names
+            if self.kv_format != "fp":
+                bad("kv_format", f"({self.kv_format!r}) needs the paged "
+                    "engine (paged=True); only pool pages carry per-row "
+                    "scales — the contiguous layout stores model dtype")
+            if self.max_seq is not None:
+                bad("max_seq", "is only honored by the paged engine "
+                    "(paged=True); the contiguous layout fixes slot "
+                    "capacity at max_prompt + max_new_tokens")
         if self.page_size <= 0:
             bad("page_size", f"must be positive, got {self.page_size}")
+        if not self.paged:
+            return
         if self.num_pages is not None and self.num_pages <= 0:
             bad("num_pages", f"must be positive, got {self.num_pages}")
         if self.pool_rows is not None:
@@ -124,7 +144,7 @@ class ServeConfig:
     @property
     def slot_rows(self) -> int:
         """Per-slot logical row capacity."""
-        if self.max_seq is not None:
+        if self.paged and self.max_seq is not None:
             return self.max_seq
         return self.max_prompt + self.max_new_tokens
 

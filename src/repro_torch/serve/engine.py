@@ -40,6 +40,15 @@ restores the pages byte for byte into fresh ones; "terminate" ends the
 grower with a capacity fault.  ``swap_budget_bytes`` caps the queue's
 host bytes.
 
+The contiguous cache (``ServeConfig(paged=False)``, the reference's
+layout): one region of ``cache_capacity(slot_rows)`` rows a slot, a
+whole-slot IOTLB window each, no allocator.  A prompt must fit one chunk
+(a longer one fails the IOTLB check at admission, as in the reference);
+decode reads the cache through the paged kernels, viewed as pages of
+``page_size`` rows over its first ``slot_rows`` rows, the paged engine's
+table width.  No overcommit, preemption, swap, prefix sharing or
+copy-on-write, as in the reference.
+
 Not in this slice (ServeConfig rejects them): swap spill and the tiered
 pool, oversized contexts, speculative decoding, decode twins,
 temperature sampling.
@@ -51,17 +60,20 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.iotlb import FaultRecord, IotlbFault
+from repro_torch.core.iotlb import FaultRecord, Iotlb, IotlbFault, Window
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mpq_matmul as _mpq
 from repro_torch.kernels import paged_flash_decode as _paged
-from repro_torch.models.common import require_device
+from repro_torch.models.common import ContigView, require_device
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.model import Transformer, init_paged_cache
+from repro_torch.models.model import (Transformer, cache_capacity,
+                                      init_cache, init_paged_cache)
 from repro_torch.serve.allocator import PageAllocator
 from repro_torch.serve.config import Request, ServeConfig
 from repro_torch.serve.scheduler import Scheduler, SwappedRequest
-from repro_torch.train.step import (make_paged_chunked_prefill_step,
+from repro_torch.train.step import (make_chunked_prefill_step,
+                                    make_decode_step,
+                                    make_paged_chunked_prefill_step,
                                     make_paged_decode_step)
 
 _DEFER = "defer"                    # admission verdict: retry after frees
@@ -128,18 +140,40 @@ class ServingEngine:
         self.params = params
         self.sc = serve_cfg
         bsz, ps = serve_cfg.max_batch, serve_cfg.page_size
-        self.pages_per_slot = -(-serve_cfg.slot_rows // ps)
-        self._slot_span = self.pages_per_slot * ps
-        self.num_pages = (serve_cfg.num_pages
-                          if serve_cfg.num_pages is not None
-                          else bsz * self.pages_per_slot)
-        self.cache = init_paged_cache(cfg, self.num_pages, ps,
-                                      kv_format=serve_cfg.kv_format,
-                                      device=self.device)
-        self._decode = make_paged_decode_step(cfg)
-        self._prefill = make_paged_chunked_prefill_step(cfg)
-        self.alloc = PageAllocator(self.num_pages, ps, bsz,
-                                   self.pages_per_slot)
+        rows = serve_cfg.slot_rows
+        if serve_cfg.paged:
+            self.pages_per_slot = -(-rows // ps)
+            self._slot_span = self.pages_per_slot * ps
+            self.num_pages = (serve_cfg.num_pages
+                              if serve_cfg.num_pages is not None
+                              else bsz * self.pages_per_slot)
+            self.cache = init_paged_cache(cfg, self.num_pages, ps,
+                                          kv_format=serve_cfg.kv_format,
+                                          device=self.device)
+            self._decode = make_paged_decode_step(cfg)
+            self._prefill = make_paged_chunked_prefill_step(cfg)
+            self.alloc = PageAllocator(self.num_pages, ps, bsz,
+                                       self.pages_per_slot)
+        else:
+            cap = cache_capacity(cfg, rows)
+            if cap % ps:
+                raise ValueError(f"ServeConfig.page_size {ps} does not "
+                                 f"divide the contiguous cache's {cap} "
+                                 "rows a slot, which the kernels read as "
+                                 "pages")
+            self.alloc = None
+            self.cache = init_cache(cfg, bsz, rows, device=self.device)
+            # decode reads the slot's first slot_rows rows as pages: the
+            # paged engine's table width, so its splits
+            self._decode = make_decode_step(cfg, ContigView(ps, rows))
+            self._prefill = make_chunked_prefill_step(cfg)
+            self._slot_span = rows
+            # whole-slot windows (one per slot), mapped once
+            self._plain_iotlb = Iotlb()
+            for i in range(bsz):
+                self._plain_iotlb.program(Window(
+                    name=f"slot{i}", virt_base=i * rows, size=rows,
+                    phys_base=i * rows, readable=True, writable=True))
         self.sched = Scheduler(bsz, serve_cfg.max_prompt)
         self.positions = np.zeros((bsz,), np.int32)
         self.last_token = np.zeros((bsz,), np.int32)
@@ -160,18 +194,19 @@ class ServingEngine:
         # host bytes one swapped page occupies, for the swap budget: every
         # pool leaf, scales included.  No family the port serves keeps
         # per-slot state, so a snapshot holds pages only.
-        self._page_nbytes = sum(leaf.numel() * leaf.element_size()
-                                // leaf.shape[1]
-                                for leaf in self._pool_leaves())
+        self._page_nbytes = (sum(leaf.numel() * leaf.element_size()
+                                 // leaf.shape[1]
+                                 for leaf in self._pool_leaves())
+                             if serve_cfg.paged else 0)
         self._slot_state_nbytes = 0
 
     # -- views ----------------------------------------------------------------
     @property
     def iotlb(self):
-        return self.alloc.iotlb
+        return self.alloc.iotlb if self.sc.paged else self._plain_iotlb
 
     def pages_in_use(self) -> int:
-        return self.alloc.pages_in_use()
+        return self.alloc.pages_in_use() if self.sc.paged else 0
 
     def _pool_leaves(self) -> List[torch.Tensor]:
         """Every pool leaf in the reference's flattening order (stages in
@@ -180,7 +215,8 @@ class ServingEngine:
 
     def pool_bytes_per_shard(self) -> int:
         """Device bytes of page-pool state one pool shard holds: every
-        cache leaf, scales included.  On one device, the whole pool."""
+        cache leaf, scales included.  On one device, the whole pool; for
+        the contiguous layout, the whole cache."""
         return sum(leaf.numel() * leaf.element_size()
                    for stage in self.cache for leaf in stage.values())
 
@@ -242,6 +278,18 @@ class ServingEngine:
         if not req.prompt:
             self._reject(req)
             return False, no_share
+        if not self.sc.paged:
+            span = len(req.prompt) + self.sc.max_new_tokens
+            if self.iotlb.translate(slot * self._slot_span, span,
+                                    write=True, strict=False) is None:
+                self._reject(req)
+                if self.sc.strict_iotlb:
+                    f = self.iotlb.faults[-1]
+                    raise IotlbFault(f.kind, f"request {req.rid}: range "
+                                     f"[{f.start}, {f.start + f.length}) "
+                                     f"write={f.write}")
+                return False, no_share
+            return True, no_share
         demand = (self._max_pages(req) if self.sc.reserve_decode_pages
                   else self._claim_count(req))
         if demand > self.num_pages:
@@ -297,7 +345,8 @@ class ServingEngine:
         """Fill free slots in the pending queue's order, then one prefill
         dispatch covering new and resumed slots.  Swapped requests
         re-enter first."""
-        self._swap_in_ready()
+        if self.sc.paged:
+            self._swap_in_ready()
         placed: List[tuple] = []
         copies: List[Tuple[int, int]] = []
         try:
@@ -315,15 +364,18 @@ class ServingEngine:
                         got = req
                 if got is None:
                     break
-                start_row, cps = self._claim_pages(slot, got, share)
-                copies.extend(cps)
+                start_row = 0
+                if self.sc.paged:
+                    start_row, cps = self._claim_pages(slot, got, share)
+                    copies.extend(cps)
                 self.sched.place(slot, got, prefill_done=start_row)
                 placed.append((slot, got))
         except IotlbFault:
             # strict fault mid-wave: hand back the requests vetted so far
             # and their pages, so a caller that catches it loses nothing.
             for slot, req in reversed(placed):
-                self.alloc.release_slot(slot)
+                if self.sc.paged:
+                    self.alloc.release_slot(slot)
                 self.sched.release(slot)
                 self.sched.defer_pending(req)
             raise
@@ -345,18 +397,22 @@ class ServingEngine:
         one = torch.zeros((bsz, 1), dtype=torch.int32, device=dev)
         inactive = torch.full((bsz,), -1, dtype=torch.int32, device=dev)
         with torch.inference_mode():
-            self._prefill(self.params, self.cache, z_tok, z_len,
-                          self._pages_dev(), None)
-            self._prefill(self.params, self.cache, z_tok, z_len,
-                          self._pages_dev(), z_len)
-            self._decode(self.params, self.cache, one, inactive,
-                         self._pages_dev())
+            if self.sc.paged:
+                self._prefill(self.params, self.cache, z_tok, z_len,
+                              self._pages_dev(), None)
+                self._prefill(self.params, self.cache, z_tok, z_len,
+                              self._pages_dev(), z_len)
+                self._decode(self.params, self.cache, one, inactive,
+                             self._pages_dev())
+            else:
+                self._prefill(self.params, self.cache, z_tok, z_len)
+                self._decode(self.params, self.cache, one, inactive)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
     def _dispatch(self, step, *args):
         """Run one prefill or decode step, counting its kernel launches."""
-        self.peak_pages = max(self.peak_pages, self.alloc.pages_in_use())
+        self.peak_pages = max(self.peak_pages, self.pages_in_use())
         before = _kernel_launches()
         with torch.inference_mode():
             logits, self.cache = step(self.params, self.cache, *args)
@@ -382,17 +438,19 @@ class ServingEngine:
 
     def _prefill_dispatch(self, work) -> None:
         bsz, sp, ps = self.sc.max_batch, self.sc.max_prompt, self.sc.page_size
-        copies = []
-        for slot, off, toks in work:
-            # COW barrier + page-granular write coverage for the rows this
-            # chunk writes (true misses fault before any cache mutation)
-            for j in range(off // ps, (off + len(toks) - 1) // ps + 1):
-                cp = self.alloc.privatize(slot, j)
-                if cp is not None:
-                    copies.append(cp)
-                self.alloc.check_write(slot, j * ps, ps,
-                                       strict=self.sc.strict_iotlb)
-        self._apply_copies(copies)
+        if self.sc.paged:
+            copies = []
+            for slot, off, toks in work:
+                # COW barrier + page-granular write coverage for the rows
+                # this chunk writes (true misses fault before any cache
+                # mutation)
+                for j in range(off // ps, (off + len(toks) - 1) // ps + 1):
+                    cp = self.alloc.privatize(slot, j)
+                    if cp is not None:
+                        copies.append(cp)
+                    self.alloc.check_write(slot, j * ps, ps,
+                                           strict=self.sc.strict_iotlb)
+            self._apply_copies(copies)
         toks_np = np.zeros((bsz, sp), np.int32)
         lens_np = np.zeros((bsz,), np.int32)
         offs_np = np.zeros((bsz,), np.int32)
@@ -401,11 +459,14 @@ class ServingEngine:
             lens_np[slot] = len(toks)
             offs_np[slot] = off
         dev = self.device
-        offs = (torch.from_numpy(offs_np).to(dev) if offs_np.any()
-                else None)
-        logits = self._dispatch(
-            self._prefill, torch.from_numpy(toks_np).to(dev),
-            torch.from_numpy(lens_np).to(dev), self._pages_dev(), offs)
+        args = [torch.from_numpy(toks_np).to(dev),
+                torch.from_numpy(lens_np).to(dev)]
+        if self.sc.paged:
+            # an all-fresh wave passes no offsets (the flash kernel); the
+            # contiguous engine has fresh waves only
+            args += [self._pages_dev(), (torch.from_numpy(offs_np).to(dev)
+                                         if offs_np.any() else None)]
+        logits = self._dispatch(self._prefill, *args)
         finishes = any(
             off + len(toks) >= len(self.sched.slots[slot].req.prompt)
             for slot, off, toks in work)
@@ -440,7 +501,8 @@ class ServingEngine:
         self.sched.note_terminal(req)
         self.completed.append(req)
         self.sched.release(slot)
-        self.alloc.release_slot(slot)   # refs return to the pool
+        if self.sc.paged:
+            self.alloc.release_slot(slot)   # refs return to the pool
 
     def _apply_copies(self, copies: List[Tuple[int, int]]) -> None:
         """Apply allocator COW copies (src phys -> dst phys) to every pool
@@ -610,14 +672,18 @@ class ServingEngine:
         """One engine tick after admission: advance unfinished prefill by
         one chunk (unless this tick's admission wave already did), then one
         decode dispatch for every prompt-complete slot."""
-        if self.sched.has_prefill_work() and not self._prefilled_since_step:
+        if self.sc.paged and self.sched.has_prefill_work() \
+                and not self._prefilled_since_step:
             self._prefill_tick()
         self._prefilled_since_step = False
-        runnable = self.sched.decode_slots()
-        self._grow_pages(runnable)
-        runnable = set(runnable)
-        active = [i for i in self.sched.decode_slots()
-                  if i in runnable]     # growth may have swapped slots
+        if self.sc.paged:
+            runnable = self.sched.decode_slots()
+            self._grow_pages(runnable)
+            runnable = set(runnable)
+            active = [i for i in self.sched.decode_slots()
+                      if i in runnable]     # growth may have swapped slots
+        else:
+            active = self.sched.decode_slots()
         if not active:
             return
         mask_np = np.zeros((self.sc.max_batch,), bool)
@@ -626,7 +692,9 @@ class ServingEngine:
         toks = torch.from_numpy(self.last_token[:, None].copy()).to(dev)
         pos_v = torch.from_numpy(
             np.where(mask_np, self.positions, -1).astype(np.int32)).to(dev)
-        logits = self._dispatch(self._decode, toks, pos_v, self._pages_dev())
+        logits = self._dispatch(self._decode, toks, pos_v,
+                                *([self._pages_dev()] if self.sc.paged
+                                  else []))
         nxt = self._sample(logits)
         lg_np = (logits.float().cpu().numpy() if self.sc.record_logits
                  else None)
@@ -647,15 +715,17 @@ class ServingEngine:
     # -- session API ---------------------------------------------------------
     def submit(self, req: Request) -> RequestHandle:
         """Queue ``req`` for admission and return its handle at once.
-        Raises once the engine has been drained, and for a prompt longer
-        than ``slot_rows - max_new_tokens``: the reference serves those
-        as oversized contexts from a host tier, which this slice does not
-        have (ROADMAP queue 1 item 14)."""
+        Raises once the engine has been drained, and on the paged engine
+        for a prompt longer than ``slot_rows - max_new_tokens``: the
+        reference serves those as oversized contexts from a host tier,
+        which this slice does not have (ROADMAP queue 1 item 14).  The
+        contiguous engine fails such a prompt at admission, as the
+        reference's does (an IOTLB fault)."""
         if self._closed:
             raise RuntimeError("ServingEngine is closed: submit() after "
                                "drain() — construct a new engine")
         limit = self.sc.slot_rows - self.sc.max_new_tokens
-        if len(req.prompt) > limit:
+        if self.sc.paged and len(req.prompt) > limit:
             raise ValueError(
                 f"Request.prompt of request {req.rid} has {len(req.prompt)} "
                 f"tokens, more than slot_rows - max_new_tokens = {limit}; "

@@ -338,7 +338,7 @@ def test_the_mla_route_reads_keys_and_values_from_one_tile():
 def test_the_mla_tile_is_declared_once_beside_the_wrapper():
     """Decode's engine split is one tile of the bf16 routes: the
     wrapper's TILE_KEYS is the MMA_BK of both kernels, and MLA's split
-    takes GQA's tile functions rather than a tile of its own."""
+    takes GQA's tile function rather than a tile of its own."""
     for source in ("mla_paged_decode.cu", "paged_flash_decode.cu"):
         tile = re.search(r"constexpr int MMA_BK = (\d+);", _text(source))
         assert tile and int(tile.group(1)) == pfd.TILE_KEYS, source
@@ -346,8 +346,8 @@ def test_the_mla_tile_is_declared_once_beside_the_wrapper():
     imported = re.search(r"from repro_torch\.models\.attention import "
                          r"\(([^)]*)\)", model)
     assert imported
-    assert {"tile_pages_per_split", "tile_split"} <= \
-        set(re.findall(r"\w+", imported.group(1)))
+    assert "tile_split" in set(re.findall(r"\w+", imported.group(1)))
+    assert not re.search(r"^def \w*pages_per_split", model, re.M)
     assert not re.search(r"^[A-Z_]*TILE[A-Z_]* = \d+", model, re.M)
     assert "TILE_KEYS" not in re.sub(r'"""[\s\S]*?"""', "", model)
 

@@ -2,8 +2,9 @@
 CPU.
 
 The port's MLA decode cuts each slot's pages into splits of one 64-key
-tile of the bf16 kernel (``models/mla.py::mla_decode_pages_per_split``:
-4 pages at page 16, 2 at page 32), where the reference takes one page a
+tile of the bf16 kernel (``models/attention.py::tile_pages_per_split``,
+which ``models/mla.py::decode_split`` takes: 4 pages at page 16, 2 at
+page 32), where the reference takes one page a
 split.  The function depends on the page size and the table width alone,
 so the CPU runs the card's split.  Here:
 
@@ -58,14 +59,14 @@ def _t(a):
     (64, 8, 1), (128, 8, 1),            # at least one page
 ])
 def test_the_decode_split_is_one_key_tile(page_size, p, want):
-    assert mla.mla_decode_pages_per_split(page_size, p) == want
+    assert tattn.tile_pages_per_split(page_size, p) == want
     assert pfd.TILE_KEYS == 64
 
 
 def test_the_decode_split_reads_no_device_or_config():
     """Two arguments, page size and table width: the CPU and the card cut
     the page axis alike."""
-    params = inspect.signature(mla.mla_decode_pages_per_split).parameters
+    params = inspect.signature(tattn.tile_pages_per_split).parameters
     assert list(params) == ["page_size", "p"]
 
 
@@ -115,7 +116,7 @@ def test_the_split_combines_to_the_reference_per_page_result(fmt, seed):
         jquant = dict(scale_pool=s, bits=jax_format(fmt).bits)
     want = jax_mla(*[jnp.asarray(a) for a in (pool, qc, qr, tbl, pos)], R,
                    SCALE_DIM, interpret=True, **jquant)
-    c = mla.mla_decode_pages_per_split(PS, P)
+    c = tattn.tile_pages_per_split(PS, P)
     got = pfd.mla_paged_decode_partials(
         *[_t(a) for a in (pool, qc, qr, tbl, pos)], R, SCALE_DIM,
         pages_per_split=c, **quant)

@@ -134,7 +134,7 @@ def test_packed_matmuls_have_no_fallback_off_the_cpu():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("temperature", 0.7), ("paged", False),
+    ("temperature", 0.7),
     ("host_pool_pages", 8), ("spec_draft", "self"), ("decode_sharing", True),
     ("spill_dir", "/tmp/spill")])
 def test_serve_config_rejects_unserved_knobs(field, value):
