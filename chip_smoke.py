@@ -158,6 +158,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
       256-token chunks, each launching the paged kernel's chunk route
       once a layer, and its last logits are held to the single pass.
       The cache's bytes are printed beside the card.
+  15. the paper's quantized CNNs (Table VI) at full size, after phase
+      14's weights are released (``vision_phase``): MobileNetV1 (base 32,
+      224 x 224 x 3, 1000 classes) in float32, 8b (a8w8) and 8b4b (a8w4),
+      and ResNet-20 (base 16, 32 x 32 x 3, 10 classes) in float32, 8b and
+      4b2b (a4w2), at batch 1 and at 64 / 256 images, on random weights
+      from a seeded generator, every quantized weight packed once.  Each
+      forward launches the integer kernel 15 (MobileNetV1) or 22
+      (ResNet-20) times and no other kernel (counts at 0 just before,
+      read just after); its logits equal, bit for bit, the same forward's
+      with the plain matmul; float32 logits lie within VISION_F32_TOL of
+      a float64 forward.  Latency, images/s, each distinct matmul call's
+      kernel time beside its bound, the device time by part and the
+      model's bytes are printed beside the card.
 
 Phase 2 also holds the MLA path's kernels (phase 2b): the flash forward
 at q/k 192 / v 128 on a fresh 256-token chunk (KV = H = 16), the paged
@@ -206,7 +219,8 @@ library call of kernel table rows 2 and 4; never on the main path).
 The second-to-last line is a JSON object listing the ported kernels; the
 last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 ``--kernels-only`` stops after the kernel checks (phases 1, 2, 2b, 2c,
-2d and 5).  ``--sweeps-only`` runs the build, the paged decode sweep, the
+2d and 5).
+``--sweeps-only`` runs the build, the paged decode sweep, the
 MLA sweep and the MLA_EDGES cases alone, at explicit pages a split: it
 is how an earlier tree's readings behind the sweeps and
 MLA_EDGE_TOL_BF16 are taken (a copy of this script in a checkout of
@@ -1511,20 +1525,26 @@ def check_matmul(torch, timer, kind, M, K, N, a_bits, w_bits, seed):
         ms = timer.ms(lambda: x @ w_deq, iters=5, warmup=1)
         del w_deq
     else:
-        # torch._int_mm takes more than 16 rows: at decode x is padded
-        # with zero rows to 32
-        xi = torch.nn.functional.pad(unpack(xq, a_bits, axis=1),
-                                     (0, 0, 0, max(32 - M, 0))).contiguous()
-        wi = unpack(pw.packed, w_bits, axis=0).contiguous()
-        call = ("torch._int_mm on unpacked int8 operands (x zero-padded "
-                "to 32 rows at M <= 16): the int32 sum only")
-        ms = timer.ms(lambda: torch._int_mm(xi, wi), iters=5, warmup=1)
-        del xi, wi
+        call, ms = int_yardstick(torch, timer, xq, a_bits, pw.packed, w_bits)
     rec["yardstick"] = {"call": call, "ms": ms}
     nbytes = sum(t.numel() * t.element_size() for t in ins) + out_bytes
     rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 2.0 * M * K * N,
                                                 peak)
     return rec
+
+
+def int_yardstick(torch, timer, xq, a_bits, w_packed, w_bits):
+    """The integer matmul's yardstick, (call, ms): ``torch._int_mm`` on
+    the unpacked int8 operands, which computes the int32 sum only, not
+    the packed function.  It takes more than 16 rows, so a shorter x is
+    padded with zero rows to 32."""
+    from repro_torch.core.packing import unpack
+    xi = torch.nn.functional.pad(unpack(xq, a_bits, axis=1),
+                                 (0, 0, 0, max(32 - xq.shape[0], 0)))
+    xi, wi = xi.contiguous(), unpack(w_packed, w_bits, axis=0).contiguous()
+    ms = timer.ms(lambda: torch._int_mm(xi, wi), iters=5, warmup=1)
+    return ("torch._int_mm on unpacked int8 operands (x zero-padded to 32 "
+            "rows at M <= 16): the int32 sum only"), ms
 
 
 # ---------------------------------------------------------------------------
@@ -3170,6 +3190,361 @@ def contiguous_yardstick(torch, timer, B=8, cap=5376, rows=1056, ps=16):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the paper's quantized CNNs (Table VI) through the packed matmuls.
+# ---------------------------------------------------------------------------
+
+# Table VI's networks at full size, in benchmarks/table6_qnn.py's formats
+# ((a_bits, w_bits); None is the float32 network, whose matmuls are
+# cuBLAS's).  Batch 1 is one camera frame, the nano-UAV's case; the
+# second batch measures throughput.  ``launches``: the integer kernel's
+# launches a forward (MobileNetV1: stem, 13 pointwise, head; ResNet-20:
+# stem, 18 convs, 2 shortcuts, head)
+VISION_NETS = {
+    "mobilenetv1": {"base": 32, "classes": 1000, "img": 224,
+                    "batches": (1, 64), "launches": 15,
+                    "formats": {"fp32": None, "8b": (8, 8), "8b4b": (8, 4)}},
+    "resnet20": {"base": 16, "classes": 10, "img": 32, "batches": (1, 256),
+                 "launches": 22,
+                 "formats": {"fp32": None, "8b": (8, 8), "4b2b": (4, 2)}},
+}
+# the float32 forward's logits against a float64 forward of the same
+# weights and images, as a share of the row's largest |logit|: each
+# float32 dot sums at most 1024 products (9 a depthwise tap), rounding
+# at ~1e-6 of its scale, through 14-22 layers
+VISION_F32_TOL = 1e-4
+VISION_ITERS = 10         # timed forwards a (network, format, batch)
+# the integer kernel's device functions (csrc/mpq_matmul.cu), as parts
+# of their names in the profiler
+VISION_KERNELS = ("::int_mma_rows<", "::int_mma_cols<", "::int_reduce(")
+
+
+def vision_params(torch, net):
+    """(specs, apply, raw weights) of a full-size network, drawn by
+    ``init_vision`` from a seeded generator.  MobileNetV1's are rescaled
+    to He scales (std sqrt(2 / fan_in), depthwise sqrt(2 / 9)), as the
+    CPU tests draw them: at the reference's init (depthwise 0.3,
+    1 / sqrt(fan_in)) its activations shrink 1.5-3x a stage and the
+    logits all but vanish."""
+    from repro_torch.models import vision as V
+    n = VISION_NETS[net]
+    if net == "mobilenetv1":
+        specs, apply = (V.mobilenet_specs(n["base"], n["classes"]),
+                        V.mobilenet_apply)
+    else:
+        specs, apply = (V.resnet20_specs(n["base"], n["classes"]),
+                        V.resnet20_apply)
+    raw = V.init_vision(specs, torch.Generator(device="cuda").manual_seed(15),
+                        device="cuda")
+    if net == "mobilenetv1":
+        for k, s in specs.items():
+            if s.init == "normal" and k != "head":
+                raw[k] *= ((2 / 9) ** 0.5 / 0.3 if k.startswith("dw")
+                           else 2 ** 0.5)
+    return specs, apply, raw
+
+
+def pack_vision(specs, raw, quant):
+    """Every quantize-eligible weight packed once by ``prepare_weight``
+    from its flattened (kh * kw * cin, cout) form."""
+    from repro_torch.kernels.ops import prepare_weight
+    return {k: prepare_weight(v.reshape(-1, v.shape[-1]), quant)
+            if specs[k].quantize else v for k, v in raw.items()}
+
+
+def patched(pairs, fn):
+    """``fn()`` with each (module, name, value) of ``pairs`` set, then
+    the old values restored."""
+    saved = [(m, a, getattr(m, a)) for m, a, _ in pairs]
+    for m, a, v in pairs:
+        setattr(m, a, v)
+    try:
+        return fn()
+    finally:
+        for m, a, v in saved:
+            setattr(m, a, v)
+
+
+def plain_vision(torch, fn):
+    """``fn()`` with the vision module's packed matmul replaced by
+    ``plain_quantized_matmul`` (the kernels' plain versions, on the
+    card); everything else is the same code."""
+    from repro_torch.models import vision as V
+    return patched([(V, "quantized_matmul", lambda x, pw, quant:
+                     plain_quantized_matmul(torch, x, pw, quant))], fn)
+
+
+def forward_ms(torch, fn, iters=VISION_ITERS):
+    """Median wall ms of ``fn()`` to its last kernel's end (host clock,
+    the card synchronized) over ``iters`` calls, after two warm-ups."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def vision_breakdown(torch, fn):
+    """Device ms of one forward by part (``torch.profiler``, with ranges
+    around the functions that make each part): ``im2col`` of the convs
+    (pad, strided slices, concatenation), ``depthwise`` (its tap sum),
+    and the packed matmul (``vision.quantized_matmul``), read as
+    ``quantize`` (per-row activation scales and integers), ``pack``
+    (activations below 8 bits), ``kernel`` (the integer kernel and its
+    split-K reduce, summed by name: the profiler does not tie a launch
+    through ctypes to its range) and ``pad_cast`` (the rest: K padded,
+    the output cast and un-padded); ``rest`` is everything else (the
+    float matmuls, batch norm, ReLU, residual adds, the mean pool).
+    Also the busy device ms and the top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_serve import _device_us as device_us
+    from repro_torch.models import vision as V
+
+    def ranged(f, name):
+        def run(*a, **k):
+            with record_function(name):
+                return f(*a, **k)
+        return run
+    parts = {"im2col": (V, "im2col"),
+             "depthwise": (V, "depthwise_conv_q"),
+             "quantized_matmul": (V, "quantized_matmul"),
+             "quantize": (ops, "quantize_activation"),
+             "pack": (ops, "pack"), "kernel": (ops, "mpq_matmul")}
+    pairs = [(m, a, ranged(getattr(m, a), name))
+             for name, (m, a) in parts.items()]
+
+    def run():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return prof.key_averages()
+    avgs = patched(pairs, run)
+    dev = sorted(((e.key, device_us(e), e.count) for e in avgs
+                  if e.device_type == DeviceType.CUDA and e.key not in parts
+                  and device_us(e) > 0), key=lambda r: -r[1])
+    span = {e.key: device_us(e, own=False) / 1e3 for e in avgs
+            if e.device_type == DeviceType.CPU and e.key in parts}
+    ms = {k: span.get(k, 0.0) for k in parts}
+    busy = sum(r[1] for r in dev) / 1e3
+    # the kernel's time inside the matmul's span (0 where the profiler
+    # does not tie it there) and by name
+    kernel = sum(r[1] for r in dev
+                 if any(n in r[0] for n in VISION_KERNELS)) / 1e3
+    qmm = ms["quantized_matmul"] - ms["kernel"]
+    out = {"busy_ms": busy, "im2col": ms["im2col"],
+           "depthwise": ms["depthwise"], "quantize": ms["quantize"],
+           "pack": ms["pack"], "kernel": kernel,
+           "pad_cast": qmm - ms["quantize"] - ms["pack"],
+           "rest": busy - ms["im2col"] - ms["depthwise"] - qmm - kernel}
+    out["kernel_share"] = out["kernel"] / busy if busy else None
+    out["top"] = [{"op": k[:70], "ms": us / 1e3, "calls": n}
+                  for k, us, n in dev[:8]]
+    return out
+
+
+def vision_calls(torch, fn):
+    """The packed matmul's distinct calls in one forward, keyed (M, K, N,
+    a_bits, w_bits) with K and N unpadded: [the first call's (x, pw,
+    quant), the number of calls]."""
+    from repro_torch.models import vision as V
+    calls, good = {}, V.quantized_matmul
+
+    def spy(x, pw, quant):
+        key = (x.numel() // pw.k, pw.k, pw.n, quant.a_bits, pw.w_bits)
+        calls.setdefault(key, [(x, pw, quant), 0])[1] += 1
+        return good(x, pw, quant)
+    patched([(V, "quantized_matmul", spy)], fn)
+    return calls
+
+
+def time_vision_call(torch, timer, x, pw, quant):
+    """One packed-matmul call of a forward, as the integer kernel sees it
+    (K padded to 256, N to 128; the activations quantized and packed as
+    ``ops.quantized_matmul`` does): bitwise against its plain version,
+    timed beside it, the yardstick and the bound.  ``bound_ms`` counts
+    the conv's own work at its unpadded k and n: x (M, k) read once at
+    a_bits, the (k, n) weight at w_bits and both scales, the float32
+    (M, n) output written once, and 2 M k n operations at the int8
+    tensor-core rate.  ``padded_bound_ms`` counts the same on the
+    operands the kernel is given (K padded to 256, N to 128)."""
+    from repro_torch.core.packing import pack, pack_factor
+    from repro_torch.core.quant import quantize_activation
+    from repro_torch.kernels import mpq_matmul as mm
+    a, w = quant.a_bits, pw.w_bits
+    kp = pw.packed.shape[0] * pack_factor(w)
+    x2 = torch.nn.functional.pad(x.reshape(-1, pw.k),
+                                 (0, kp - pw.k)).contiguous()
+    xq, xs = quantize_activation(x2, a)
+    if a < 8:
+        xq = pack(xq, a, axis=1)
+    xq, xs, ws = xq.contiguous(), xs.contiguous(), pw.scale[None, :]
+    m, np_ = x2.shape[0], pw.packed.shape[1]
+    run = lambda: mm.mpq_matmul(xq, xs, pw.packed, ws,  # noqa: E731
+                                a_bits=a, w_bits=w)
+    plain = lambda: mm.mpq_matmul_plain(xq, xs, pw.packed,  # noqa: E731
+                                        ws, a_bits=a, w_bits=w)
+    if not torch.equal(run(), plain()):
+        fail(f"vision mpq_matmul a{a}w{w} M={m} K={kp} N={np_}: not "
+             "bitwise equal to its plain version")
+    k, n = pw.k, pw.n
+    nbytes = (m * k * a + k * n * w) / 8 + (m + n) * 4 + m * n * 4
+    bound, by = bound_ms(nbytes, 2.0 * m * k * n, INT8_OPS)
+    padded = sum(t.numel() * t.element_size()
+                 for t in (xq, xs, pw.packed, ws)) + m * np_ * 4
+    rec = {"M": m, "K": kp, "N": np_, "k": k, "n": n,
+           "ms": timer.ms(run, iters=5, warmup=1),
+           "plain_ms": timer.ms(plain, iters=3, warmup=1),
+           "bound_ms": bound, "bound_by": by,
+           "padded_bound_ms": bound_ms(padded, 2.0 * m * kp * np_,
+                                       INT8_OPS)[0],
+           "useful_ops_share": pw.k * pw.n / (kp * np_),
+           "yardstick_ms": int_yardstick(torch, timer, xq, a, pw.packed,
+                                         w)[1]}
+    return rec
+
+
+def vision_phase(torch, card):
+    """Phase 15: Table VI's quantized CNNs at full size on random weights
+    (``vision_params``): MobileNetV1 (base 32, 224 x 224, 1000 classes)
+    in float32, 8b and 8b4b, ResNet-20 (base 16, 32 x 32, 10 classes) in
+    float32, 8b and 4b2b, each at batch 1 and a larger batch, with
+    PackedWeight leaves packed once (``pack_vision``).  For each forward,
+    every kernel's launch count is set to 0 just before and read just
+    after: the integer kernel must launch ``launches`` times (0 in
+    float32) and no other kernel at all.  The logits must be finite;
+    float32's within VISION_F32_TOL of a float64 forward of the same
+    weights, each integer format's bit for bit those of the same forward
+    with the plain matmul (``plain_vision``).  Printed: the median
+    latency and images/s, each distinct matmul call's kernel time beside
+    its plain version, yardstick and bound (``time_vision_call``), the
+    device time by part at the larger batch (``vision_breakdown``) and
+    ``model_bytes`` (packing arithmetic).  Runs after every earlier
+    phase's weights are released.  Returns the kernels line's record."""
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mpq_matmul as mm
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.models import vision as V
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    others = (lambda: fa.launches + pfd.launches + pfd.quant_launches
+              + pfd.mla_launches + pfd.mla_quant_launches)
+    total = {"launches": 0, "reduce_launches": 0}
+    summary = {}
+    for net, n in VISION_NETS.items():
+        specs, apply, raw = vision_params(torch, net)
+        g = torch.Generator(device="cuda").manual_seed(16)
+        images = {b: torch.randn((b, n["img"], n["img"], 3), generator=g,
+                                 device="cuda") for b in n["batches"]}
+        fp32 = {}
+        for tag, fmt in n["formats"].items():
+            quant = (None if fmt is None else
+                     QuantConfig(mode="int", a_bits=fmt[0], w_bits=fmt[1]))
+            params = raw if quant is None else pack_vision(specs, raw, quant)
+            for b, x in images.items():
+                fn = lambda: apply(params, x, quant)  # noqa: E731
+                want = n["launches"] if quant is not None else 0
+                # the main path: counts at 0 just before, read just after
+                fa.launches = pfd.launches = pfd.quant_launches = 0
+                pfd.mla_launches = pfd.mla_quant_launches = 0
+                mm.launches = mm.reduce_launches = 0
+                y = fn()
+                torch.cuda.synchronize()
+                rec = {"phase": "vision", "net": net, "format": tag,
+                       "batch": b, "launches": mm.launches,
+                       "reduce_launches": mm.reduce_launches,
+                       "other_launches": others()}
+                if mm.launches != want or others():
+                    fail(f"vision {net} {tag} batch {b}: {mm.launches} "
+                         f"integer-kernel launches (want {want}) and "
+                         f"{others()} of other kernels (want 0)")
+                total["launches"] += mm.launches
+                total["reduce_launches"] += mm.reduce_launches
+                if tuple(y.shape) != (b, n["classes"]) or \
+                        not bool(torch.isfinite(y).all()):
+                    fail(f"vision {net} {tag} batch {b}: logits "
+                         f"{tuple(y.shape)}, finite "
+                         f"{bool(torch.isfinite(y).all())}")
+                if quant is None:
+                    y64 = apply({k: v.double() for k, v in raw.items()},
+                                x.double(), None)
+                    err = rel_err(y, y64)
+                    rec.update(vs_float64=err, tol=VISION_F32_TOL)
+                    if not err <= VISION_F32_TOL:
+                        fail(f"vision {net} fp32 batch {b}: logits "
+                             f"{err} of the row max from a float64 "
+                             f"forward (> {VISION_F32_TOL})")
+                    fp32[b] = y
+                else:
+                    plain = plain_vision(torch, fn)
+                    if not torch.equal(y, plain):
+                        fail(f"vision {net} {tag} batch {b}: logits differ "
+                             f"from the plain matmul's by "
+                             f"{(y - plain).abs().max().item()}")
+                    rec.update(bitwise_plain=True,
+                               vs_fp32=rel_err(y, fp32[b]),
+                               argmax_as_fp32=(y.argmax(1) == fp32[b].argmax(
+                                   1)).float().mean().item())
+                    del plain
+                rec["ms"] = forward_ms(torch, fn)
+                rec["images_per_s"] = b / rec["ms"] * 1e3
+                if quant is not None:
+                    calls = vision_calls(torch, fn)
+                    rec["calls"] = [dict(time_vision_call(torch, timer,
+                                                          *c[0]),
+                                         per_forward=c[1])
+                                    for c in calls.values()]
+                    rec["kernel_ms_per_forward"] = sum(
+                        c["ms"] * c["per_forward"] for c in rec["calls"])
+                    for key in ("bound_ms", "padded_bound_ms"):
+                        rec[key + "_per_forward"] = sum(
+                            c[key] * c["per_forward"] for c in rec["calls"])
+                    del calls
+                if b == max(n["batches"]):
+                    rec["device_ms"] = vision_breakdown(torch, fn)
+                    if quant is not None and not rec["device_ms"]["kernel"]:
+                        fail(f"vision {net} {tag}: the profiler shows no "
+                             f"device time of {VISION_KERNELS}")
+                rec["model_bytes"] = V.model_bytes(specs, quant)
+                print(json.dumps(rec), flush=True)
+                big = max(rec.get("calls", [{}]),
+                          key=lambda c: c.get("M", 0) * c.get("K", 0))
+                summary[f"{net}_{tag}_b{b}"] = {
+                    "ms": rec["ms"], "images_per_s": rec["images_per_s"],
+                    "launches": rec["launches"],
+                    "reduce_launches": rec["reduce_launches"],
+                    **({} if quant is None else {
+                        "kernel_ms": rec["kernel_ms_per_forward"],
+                        "bound_ms": rec["bound_ms_per_forward"],
+                        "padded_bound_ms":
+                            rec["padded_bound_ms_per_forward"],
+                        "largest": {k: big[k] for k in (
+                            "M", "K", "N", "k", "n", "ms", "plain_ms",
+                            "bound_ms", "padded_bound_ms")}})}
+                del y
+            del params
+            torch.cuda.empty_cache()
+        del raw, images, fp32
+        torch.cuda.empty_cache()
+    del timer
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "vision_phase", "card": card,
+                      "launches": total, "peak_bytes":
+                      torch.cuda.max_memory_allocated(),
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return dict(total, runs=summary)
+
+
 def kernel_entry(name, source, replaces, launches, rec, design=None):
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + source,
@@ -3345,6 +3720,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     arch_launches = dense_arch_phase(torch, card)
     contig_launches = contiguous_phase(torch, card)
+    vision = vision_phase(torch, card)
 
     for rec in (recs[0], recs[2], recs[3]):
         print(json.dumps({
@@ -3488,7 +3864,9 @@ def main() -> None:
              launches_dense_archs=arch_runs("wo_matmul"),
              **{"yi-34b": {k: numbers(r) for k, r in
                            g_recs["yi-34b"]["wo_matmul"].items()}}),
-        packed_entry("mpq_matmul", "src/repro/kernels/mpq_matmul.py:32"),
+        # with phase 15's: the quantized CNNs' launches and times
+        dict(packed_entry("mpq_matmul", "src/repro/kernels/mpq_matmul.py:32"),
+             vision=vision),
         # the quantized kernels: int8 at decode (the engine's split, with
         # its times at each PAGED_SWEEP_C split), with int4 and the
         # resumed and fresh 256-row chunks (GQA) beside it, and the GQA

@@ -70,6 +70,9 @@ def quantized_matmul(x: torch.Tensor, pw: PackedWeight,
     x: (..., K) in float32 or bf16.  Returns (..., N) in x's type: the
     weight-only path writes it directly, the integer path dequantizes to
     float32 and casts."""
+    mode = None if cfg is None else cfg.mode
+    if mode not in ("int", "wo"):
+        raise ValueError(f"quantized_matmul needs mode int/wo, got {mode}")
     lead = x.shape[:-1]
     k, n = pw.k, pw.n
     kp = pw.packed.shape[0] * pack_factor(pw.w_bits)
@@ -78,16 +81,13 @@ def quantized_matmul(x: torch.Tensor, pw: PackedWeight,
         x2 = F.pad(x2, (0, kp - k))
     x2 = x2.contiguous()
     w_scale = pw.scale[None, :]
-    if cfg.mode == "int":
+    if mode == "int":
         x_q, x_scale = quantize_activation(x2, cfg.a_bits)
         if pack_factor(cfg.a_bits) > 1:
             x_q = pack(x_q, cfg.a_bits, axis=1)
         out = mpq_matmul(x_q.contiguous(), x_scale.contiguous(), pw.packed,
                          w_scale, a_bits=cfg.a_bits,
                          w_bits=pw.w_bits).to(x.dtype)
-    elif cfg.mode == "wo":
-        out = wo_matmul(x2, pw.packed, w_scale, w_bits=pw.w_bits)
     else:
-        raise ValueError(f"quantized_matmul needs mode int/wo, got "
-                         f"{cfg.mode}")
+        out = wo_matmul(x2, pw.packed, w_scale, w_bits=pw.w_bits)
     return out[:, :n].reshape(*lead, n)

@@ -21,6 +21,7 @@ so that the paged kernels read it unchanged.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -55,7 +56,10 @@ class ParamSpec:
             return 1.0
         if self.scale is not None:
             return self.scale
-        fan_in = self.shape[0] if len(self.shape) > 1 else self.shape[-1]
+        # the reference's fan_in: every axis but the output one (a
+        # (kh, kw, cin, cout) conv weight's is kh * kw * cin)
+        fan_in = (math.prod(self.shape[:-1]) if len(self.shape) > 1
+                  else self.shape[-1])
         return fan_in ** -0.5
 
 

@@ -46,7 +46,8 @@ whole-slot IOTLB window each, no allocator.  A prompt must fit one chunk
 (a longer one fails the IOTLB check at admission, as in the reference);
 decode reads the cache through the paged kernels, viewed as pages of
 ``page_size`` rows over its first ``slot_rows`` rows, the paged engine's
-table width.  No overcommit, preemption, swap, prefix sharing or
+table width (pages of 16 rows where ``page_size`` does not divide the
+capacity).  No overcommit, preemption, swap, prefix sharing or
 copy-on-write, as in the reference.
 
 Not in this slice (ServeConfig rejects them): swap spill and the tiered
@@ -127,6 +128,11 @@ class RequestHandle:
                 f"tokens={len(self.req.out_tokens)})")
 
 
+# the contiguous cache's own page, where ServeConfig.page_size does not
+# divide its capacity: the reference's contiguous engine reads no page size
+CONTIG_PAGE = 16
+
+
 class ServingEngine:
     def __init__(self, cfg: ArchConfig, params: Transformer,
                  serve_cfg: ServeConfig, *, device="cuda"):
@@ -155,16 +161,13 @@ class ServingEngine:
             self.alloc = PageAllocator(self.num_pages, ps, bsz,
                                        self.pages_per_slot)
         else:
-            cap = cache_capacity(cfg, rows)
-            if cap % ps:
-                raise ValueError(f"ServeConfig.page_size {ps} does not "
-                                 f"divide the contiguous cache's {cap} "
-                                 "rows a slot, which the kernels read as "
-                                 "pages")
+            # decode reads the slot's first slot_rows rows as pages of the
+            # paged engine's size (so its splits) where that size divides
+            # the capacity (a multiple of 256), else of CONTIG_PAGE rows
+            if cache_capacity(cfg, rows) % ps:
+                ps = CONTIG_PAGE
             self.alloc = None
             self.cache = init_cache(cfg, bsz, rows, device=self.device)
-            # decode reads the slot's first slot_rows rows as pages: the
-            # paged engine's table width, so its splits
             self._decode = make_decode_step(cfg, ContigView(ps, rows))
             self._prefill = make_chunked_prefill_step(cfg)
             self._slot_span = rows

@@ -14,7 +14,11 @@ object; in a scan stage ``packed`` is stacked (L, K // fw, N) and
 ``scale`` (L, N), and the bridge unstacks them into one
 :class:`~repro_torch.kernels.ops.PackedWeight` per layer.
 
-Neither function imports JAX.  bfloat16 leaves travel as their 16-bit
+:func:`vision_from_jax_numpy` and :func:`vision_to_jax_numpy` do the same
+for the flat parameter dict of a quantized CNN (``models/vision.py``),
+whose leaves are raw tensors or packed-leaf dicts.
+
+No function here imports JAX.  bfloat16 leaves travel as their 16-bit
 patterns (numpy has no bfloat16 of its own); on the way back they come out
 as ``ml_dtypes.bfloat16``, the type JAX hands out.
 """
@@ -104,3 +108,17 @@ def to_jax_numpy(cfg: ArchConfig, params: Transformer) -> dict:
                            for k, v in t["final_norm"].items()},
             "lm_head": (_packed_dict(head) if isinstance(head, PackedWeight)
                         else _to_numpy(head))}
+
+
+def vision_from_jax_numpy(tree: dict, device="cuda") -> dict:
+    """A CNN's flat parameter dict (``models/vision.py``) from a numpy
+    copy of the JAX one: raw arrays become tensors, packed-leaf dicts
+    :class:`PackedWeight` leaves."""
+    dev = require_device(device)
+    return {k: _leaf(v, dev) for k, v in tree.items()}
+
+
+def vision_to_jax_numpy(params: dict) -> dict:
+    """The inverse of :func:`vision_from_jax_numpy`."""
+    return {k: _packed_dict(v) if isinstance(v, PackedWeight)
+            else _to_numpy(v) for k, v in params.items()}

@@ -193,7 +193,27 @@ def test_contiguous_engine_matches_paged_engine(name):
 
 
 def test_page_size_must_divide_the_contiguous_cache():
-    _, tc, _, tp = _models("dense")
-    with pytest.raises(ValueError, match="page_size 24 does not divide"):
-        ServingEngine(tc, tp, ServeConfig(**dict(SERVE, page_size=24)),
-                      device="cpu")
+    """A page size that does not divide the cache's capacity (24 against
+    256 rows a slot) is served, as by the reference's contiguous engine,
+    which reads no page size: decode views the cache through pages of
+    its own.  Tokens, completion order, counters and TTFT ticks are the
+    JAX contiguous engine's, logits within 1e-5."""
+    jc, tc, jp, tp = _models("dense")
+    sc = dict(SERVE, page_size=24)
+    prompts = _prompts()
+    je = JaxEngine(jc, jp, JaxServeConfig(**sc))
+    jout = {r.rid: r for r in je.run(
+        [JaxRequest(i, p) for i, p in enumerate(prompts)])}
+    te = ServingEngine(tc, tp, ServeConfig(**sc), device="cpu")
+    assert te.cache[0]["k"].shape[2] % 24 != 0
+    tout = {r.rid: r for r in te.run(
+        [Request(i, p) for i, p in enumerate(prompts)])}
+    assert sorted(tout) == sorted(jout) == list(range(len(prompts)))
+    for rid, ref in jout.items():
+        assert tout[rid].out_tokens == ref.out_tokens, rid
+        assert tout[rid].ttft_ticks == ref.ttft_ticks, rid
+        for a, b in zip(tout[rid].logits, ref.logits):
+            np.testing.assert_allclose(a, np.asarray(b), atol=1e-5, rtol=0)
+    assert [r.rid for r in te.completed] == [r.rid for r in je.completed]
+    for counter in COUNTERS:
+        assert getattr(te, counter) == getattr(je, counter), counter

@@ -18,10 +18,11 @@ from repro_torch.kernels import paged_flash_decode as pfd
 from repro_torch.launch import serve as launcher
 from repro_torch.models.attention import paged_kv_cache_spec
 from repro_torch.models.mla import paged_mla_cache_spec
+from repro_torch.models import vision
 from repro_torch.models.model import (init_paged_cache, init_params,
                                       quantize_for_serving)
 from repro_torch.serve import Request, ServeConfig, ServingEngine
-from repro_torch.weights import from_jax_numpy
+from repro_torch.weights import from_jax_numpy, vision_from_jax_numpy
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -73,7 +74,8 @@ def test_engine_default_device_raises_without_a_card(no_card):
 
 
 @pytest.mark.parametrize("entry", ["init_params", "init_paged_cache",
-                                   "from_jax_numpy", "launcher"])
+                                   "from_jax_numpy", "launcher",
+                                   "init_vision", "vision_from_jax_numpy"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_card, entry):
     cfg = reduce_config(get_config("stablelm-3b"))
     calls = {
@@ -82,6 +84,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_card, entry):
         "from_jax_numpy": lambda: from_jax_numpy(cfg, {}),
         "launcher": lambda: launcher.main(["--arch", "stablelm-3b",
                                            "--reduce"]),
+        "init_vision": lambda: vision.init_vision(vision.resnet20_specs()),
+        "vision_from_jax_numpy": lambda: vision_from_jax_numpy({}),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()
