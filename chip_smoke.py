@@ -171,6 +171,27 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
       a float64 forward.  Latency, images/s, each distinct matmul call's
       kernel time beside its bound, the device time by part and the
       model's bytes are printed beside the card.
+  16. granite-moe-1b-a400m (24 ``attn_moe`` blocks: GQA at H 16 / KV 8,
+      dh 64, and a 32-expert top-8 MoE FFN) at full width and depth in
+      bf16, after phase 15's weights are released (``moe_phase``).
+      First the attention kernels at its shape against their plain
+      versions (the flash forward, the paged kernel at the engine's
+      decode split, on a resumed 256-row chunk and at every PAGED_EDGES
+      case with the planted shift outside), and ``moe_ffn`` on the card
+      in float32 on the CPU tests' planted ties and overflow, within
+      MOE_UNIT_TOL of the CPU port's and its routing bit for bit.  Then
+      phase 3's traffic on the paged pool and on the contiguous cache,
+      launches per dispatch as in phases 3 and 14, every dispatch's
+      arguments recorded: a MoE dispatch's expert capacity comes from its
+      shape, so a teacher-forced forward is no reference; the dispatches
+      are replayed instead through an engine whose attention runs the
+      kernels' plain versions (and again on widened inputs, the floor,
+      and with the gates not renormalised, the planted fault), and the
+      logits are held as phase 7 holds its (``moe_logit_check``).  The
+      routing agreement and the dropped assignments by dispatch kind,
+      the weights', cache's and peak bytes, and a decode dispatch's and
+      a fresh wave's wall, busy, attention and FFN device ms are printed
+      beside the card.
 
 Phase 2 also holds the MLA path's kernels (phase 2b): the flash forward
 at q/k 192 / v 128 on a fresh 256-token chunk (KV = H = 16), the paged
@@ -2039,19 +2060,31 @@ def mla_traffic(vocab: int, n: int = 16, seed: int = 1):
     return prompts
 
 
-def record_dispatches(eng, counters):
+def record_dispatches(eng, counters, keep_args=False):
     """Wrap the engine's two steps so that every dispatch logs its kind
     ('fresh' / 'resumed' prefill wave, or 'decode') and each counter's
-    increase over it."""
+    increase over it.  With ``keep_args`` an entry also keeps what
+    replays it on another engine (``replay``): (the step's name, its
+    arguments after the weights and the cache, its logits as float32 on
+    the CPU); the copy-on-write page copies between dispatches are
+    logged too, as kind 'copies'.  Each wrapper keeps its step as
+    ``__wrapped__``."""
+    import weakref
     log = []
 
-    def wrap(step, kind):
+    def wrap(step, kind, name):
         def run(params, cache, *args):
             before = {n: c() for n, c in counters.items()}
             out = step(params, cache, *args)
-            log.append((kind(args), {n: c() - before[n]
-                                     for n, c in counters.items()}))
+            entry = (kind(args), {n: c() - before[n]
+                                  for n, c in counters.items()})
+            if keep_args:       # copies: a CPU page table is a view
+                entry += ((name, tuple(a if a is None else a.clone()
+                                       for a in args),
+                           out[0].float().cpu()),)
+            log.append(entry)
             return out
+        run.__wrapped__ = step
         return run
     # a paged wave passes offsets last (None: fresh); the contiguous
     # engine's waves are all fresh and pass none.  The kinds read no
@@ -2060,8 +2093,16 @@ def record_dispatches(eng, counters):
     fresh_only = not eng.sc.paged
     eng._prefill = wrap(eng._prefill,
                         lambda a: "fresh" if fresh_only or a[-1] is None
-                        else "resumed")
-    eng._decode = wrap(eng._decode, lambda a: "decode")
+                        else "resumed", "_prefill")
+    eng._decode = wrap(eng._decode, lambda a: "decode", "_decode")
+    if keep_args:
+        ref = weakref.ref(eng)
+
+        def copies(pairs):
+            log.append(("copies", {}, ("_apply_copies", (list(pairs),),
+                                       None)))
+            return type(ref())._apply_copies(ref(), pairs)
+        eng._apply_copies = copies
     return log
 
 
@@ -3545,6 +3586,491 @@ def vision_phase(torch, card):
     return dict(total, runs=summary)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the MoE FFN in attn_moe blocks (granite-moe-1b-a400m).
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-1b-a400m"
+# the replayed logits (``moe_logit_check``): the kernel engine's logits
+# against a replay of its own dispatches with the kernels' plain versions
+# (same tokens, same dispatch shapes, so the same capacities), held by the
+# largest row error and the mean square of the row errors, each within
+# this multiple of the same statistic of a kernel-free floor (the replay
+# with attention on widened inputs against the plain replay) and at least
+# SERVE_REL_TOL_BF16 (squared for the mean square), as phases 7 and 10
+# hold theirs; the planted fault (gates not renormalised) must land
+# MOE_FAULT_MARGIN times outside one of the two bounds
+SERVE_MOE_NOISE_FACTOR = 1.5
+MOE_FAULT_MARGIN = 1.3
+# the fault replay runs the log's first dispatches only (every fresh
+# wave of the first eight prompts, and decode steps after them): on the
+# card the fault lands 4.6x outside the RMS bound (PERF.md §6)
+MOE_FAULT_DISPATCHES = 24
+# moe_ffn on the card in float32 against the CPU port on the CPU tests'
+# planted ties and overflow: summation order only
+MOE_UNIT_TOL = 1e-5
+# the CPU tests' (tests/torch_moe_cases.py) shapes, factor and masks
+MOE_UNIT = dict(B=3, S=20, D=32, E=8, K=2, F=16, factor=0.5)
+MOE_UNIT_MASKS = {"none": None, "chunk": (20, 13, 5),
+                  "masked_row": (20, 7, 0)}
+# the parts of a dispatch timed apart (``moe_breakdown``): the functions
+# of models/moe.py and the attention sublayer of models/blocks.py
+MOE_PARTS = ("route", "_dispatch", "_expert_swiglu", "_combine")
+
+
+def moe_unit_case(torch, ties, device):
+    """The CPU tests' inputs (``tests/torch_moe_cases.py::unit_inputs``,
+    seed 0): float32 weights and tokens with two equal router columns
+    (``ties`` 'columns') or four tokens of zeros, whose E probabilities
+    all tie ('row'); and their config at capacity factor 0.5."""
+    import numpy as np
+    from repro_torch.models.config import ArchConfig
+    u = MOE_UNIT
+    b, s, d, e, f = u["B"], u["S"], u["D"], u["E"], u["F"]
+    rng = np.random.RandomState(0)
+    p = {"router": rng.randn(d, e) * 0.3,
+         "w_gate": rng.randn(e, d, f) / np.sqrt(d),
+         "w_up": rng.randn(e, d, f) / np.sqrt(d),
+         "w_down": rng.randn(e, f, d) / np.sqrt(f)}
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    x = rng.randn(b, s, d).astype(np.float32)
+    if ties == "columns":
+        p["router"][:, 5] = p["router"][:, 2]
+    else:
+        x[0, 2] = x[1, 3] = x[2, 4] = x[0, 11] = 0.0
+    cfg = ArchConfig(name="moe_unit", family="moe", n_layers=1, d_model=d,
+                     n_heads=4, n_kv_heads=2, d_ff=0, vocab_size=64,
+                     n_experts=e, top_k=u["K"], d_ff_expert=f,
+                     capacity_factor=u["factor"], dtype=torch.float32)
+    return ({k: torch.from_numpy(v).to(device) for k, v in p.items()},
+            torch.from_numpy(x).to(device), cfg)
+
+
+def moe_unit_checks(torch):
+    """``moe_ffn`` on the card in float32 on the CPU tests' planted ties
+    and overflow (capacity factor 0.5), with and without a chunk mask
+    (one of them with a wholly masked row): output and aux within
+    MOE_UNIT_TOL of the port's on the CPU, and each assignment's expert,
+    capacity slot and ``keep`` bit for bit (the stable sort,
+    ``searchsorted`` and the scatter on the card)."""
+    import numpy as np
+    from repro_torch.models import moe
+    u = MOE_UNIT
+    recs = {}
+    for ties in ("columns", "row"):
+        for mname, lens in MOE_UNIT_MASKS.items():
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                p, x, cfg = moe_unit_case(torch, ties, dev)
+                mask = None if lens is None else torch.from_numpy(
+                    np.arange(u["S"])[None, :]
+                    < np.asarray(lens)[:, None]).to(dev)
+                y, aux = moe.moe_ffn(p, x, cfg, mask)
+                r = moe.route(p, x.reshape(-1, u["D"]), cfg, mask)
+                routed = r.experts.reshape(-1) < u["E"]
+                runs[dev] = (y.cpu(), float(aux), r.idx_e.cpu(),
+                             r.idx_c.cpu(), r.keep.cpu(),
+                             int((~r.keep & routed).sum()))
+            (yc, ac, ec, cc, kc, dc), (yg, ag, eg, cg, kg, dg) = \
+                runs["cpu"], runs["cuda"]
+            key = f"{ties}_{mname}"
+            rec = {"max_abs_err": (yg - yc).abs().max().item(),
+                   "aux_err": abs(ag - ac), "tol": MOE_UNIT_TOL,
+                   "routing_bitwise": bool(torch.equal(eg, ec)
+                                           and torch.equal(cg, cc)
+                                           and torch.equal(kg, kc)),
+                   "dropped": [dc, dg]}
+            recs[key] = rec
+            if not (rec["max_abs_err"] <= MOE_UNIT_TOL
+                    and rec["aux_err"] <= MOE_UNIT_TOL):
+                fail(f"moe_ffn on the card, {key}: {rec}: beyond "
+                     f"{MOE_UNIT_TOL} of the CPU port's")
+            if not rec["routing_bitwise"]:
+                fail(f"moe_ffn on the card, {key}: its routing (experts, "
+                     "capacity slots, keep) differs from the CPU port's")
+    print(json.dumps({"phase": "moe_unit", "cases": recs}), flush=True)
+    return recs
+
+
+def moe_kernel_checks(torch):
+    """The attention kernels at granite's shape (H 16 / KV 8, dh 64, G 2)
+    in bf16 against their plain versions: the flash forward at a 256-row
+    chunk, the paged kernel at the engine's decode split and on a
+    resumed 256-row chunk (timed), and at every PAGED_EDGES case with
+    the PAGED_SHIFT fault outside PAGED_EDGE_TOL_BF16."""
+    timer = Timer(torch)
+    recs = {"flash": check_flash(torch, timer, torch.bfloat16, H=16, KV=8,
+                                 dh=64),
+            "decode": check_paged(torch, timer, torch.bfloat16, Sq=1, H=16,
+                                  KV=8, dh=64),
+            "resumed": check_paged(torch, timer, torch.bfloat16, Sq=256,
+                                   H=16, KV=8, dh=64)}
+    edges = paged_edge_checks(torch, timer, H=16, KV=8, dh=64)
+    for key, rec in list(recs.items()) + list(edges.items()):
+        print(json.dumps(dict(phase="kernel_moe", arch=MOE_ARCH, case=key,
+                              **rec)), flush=True)
+    recs["edges"] = edge_summary(f"paged_edges {MOE_ARCH}", edges)
+    print(json.dumps(recs["edges"]), flush=True)
+    del timer
+    torch.cuda.empty_cache()
+    return recs
+
+
+def live_rows(kind, args):
+    """The slots a recorded dispatch computes for: a chunk's slots with
+    a length, decode's with a position (the engine reads only those)."""
+    return (args[1] > 0) if kind != "decode" else (args[1] >= 0)
+
+
+def live_tokens(kind, args):
+    """(B * S,) the tokens a recorded dispatch routes for a live slot."""
+    import torch
+    if kind == "decode":
+        return (args[1] >= 0).reshape(-1)
+    s = args[0].shape[1]
+    ar = torch.arange(s, device=args[1].device)
+    return (ar[None, :] < args[1][:, None]).reshape(-1)
+
+
+def route_recorder(routes):
+    """(module, name, value) pairs that make ``moe.route`` append each
+    call's (experts, keep) to ``routes``, in call order."""
+    from repro_torch.models import moe
+    good = moe.route
+
+    def rec(p, xf, cfg, token_mask=None):
+        r = good(p, xf, cfg, token_mask)
+        routes.append((r.experts, r.keep))
+        return r
+    return [(moe, "route", rec)]
+
+
+def replay_attention(torch, how):
+    """(module, name, value) pairs for a replay: the attention kernels
+    replaced by their plain versions ('plain', 'fault'), or by the plain
+    versions on inputs widened to float32 ('widened', the noise floor:
+    nothing rounds to bf16 inside attention); 'fault' also takes the
+    gates' renormalisation out of the routing."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe
+    wide = (lambda t: t.float()) if how == "widened" else (lambda t: t)
+
+    def flash(q, k, v, *, kv_valid=None):
+        return fa.flash_attention_plain(wide(q), wide(k), wide(v),
+                                        kv_valid).to(q.dtype)
+
+    def paged(k_pool, v_pool, q, tbl, qpos, kv_valid, *,
+              pages_per_split=1, **quant):
+        return pfd.paged_flash_decode_partials_plain(
+            wide(k_pool), wide(v_pool), wide(q), tbl, qpos, kv_valid,
+            pages_per_split, **quant)
+
+    def unnormalised(probs, k):
+        gates, experts = torch.sort(probs, dim=-1, descending=True,
+                                    stable=True)
+        return gates[:, :k], experts[:, :k]
+    pairs = [(attn_mod, "flash_attention", flash),
+             (attn_mod, "paged_flash_decode_partials", paged)]
+    if how == "fault":
+        pairs.append((moe, "_top_k_gates", unnormalised))
+    return pairs
+
+
+def replay(torch, cfg, params, sc, log, how):
+    """Feed the dispatches of ``log`` (``record_dispatches(...,
+    keep_args=True)``), copy-on-write page copies included, through a new
+    engine in their order, under ``replay_attention(how)``.  Returns each
+    dispatch's live rows' logits (CPU float32) and its routes."""
+    from repro_torch.serve import ServingEngine
+    eng = ServingEngine(cfg, params, sc, device=params.embed.device)
+    routes, out = [], []
+
+    def run():
+        with torch.inference_mode():
+            for kind, _, (name, args, _) in log:
+                if kind == "copies":
+                    eng._apply_copies(*args)
+                    continue
+                logits, eng.cache = getattr(eng, name)(eng.params,
+                                                       eng.cache, *args)
+                out.append(logits[live_rows(kind, args)].float().cpu())
+    patched(route_recorder(routes) + replay_attention(torch, how), run)
+    del eng
+    torch.cuda.empty_cache()
+    return out, routes
+
+
+def moe_routing_stats(cfg, log, routes, plain_routes):
+    """Routing of the kernel engine's run: its dropped assignments by
+    dispatch kind (every routed token's, and the live slots' alone), and
+    the share of live (token, k) choices the plain replay agrees on, at
+    the same k and anywhere in the token's top k.  Returns (by kind, the
+    two shares)."""
+    e, n = cfg.n_experts, cfg.n_layers
+    kinds = {k: {"dispatches": 0, "assignments": 0, "dropped": 0,
+                 "live_assignments": 0, "live_dropped": 0, "agree": 0,
+                 "agree_set": 0}
+             for k in ("fresh", "resumed", "decode")}
+    disp = [(kind, args) for kind, _, (_, args, _) in log if kind != "copies"]
+    if len(routes) != n * len(disp) or len(plain_routes) != len(routes):
+        fail(f"moe routing: {len(routes)} and {len(plain_routes)} routes "
+             f"recorded for {len(disp)} dispatches of {n} layers")
+    for i, (kind, args) in enumerate(disp):
+        rec = kinds[kind]
+        rec["dispatches"] += 1
+        live = live_tokens(kind, args)
+        for layer in range(n):
+            experts, keep = routes[i * n + layer]
+            p_experts = plain_routes[i * n + layer][0]
+            routed = experts < e
+            dropped = ~keep.reshape(experts.shape) & routed
+            rec["assignments"] += int(routed.sum())
+            rec["dropped"] += int(dropped.sum())
+            rec["live_assignments"] += int(live.sum()) * cfg.top_k
+            rec["live_dropped"] += int(dropped[live].sum())
+            rec["agree"] += int((experts == p_experts)[live].sum())
+            # the same expert anywhere in the token's top k
+            rec["agree_set"] += int((experts[:, :, None] == p_experts[
+                :, None, :]).any(-1)[live].sum())
+    total = sum(r["live_assignments"] for r in kinds.values())
+    share = {key: sum(r[key] for r in kinds.values()) / total
+             for key in ("agree", "agree_set")}
+    for rec in kinds.values():
+        n = rec["live_assignments"]
+        agree, agree_set = rec.pop("agree"), rec.pop("agree_set")
+        rec["agreement"] = agree / n if n else None
+        rec["set_agreement"] = agree_set / n if n else None
+    return kinds, share["agree"], share["agree_set"]
+
+
+def moe_logit_check(torch, tag, kern, plain, wide, fault):
+    """Hold the kernel engine's logits (``kern``, live rows a dispatch)
+    against the plain replay's by ``int_stats`` (the largest row error
+    and the mean square of the row errors), each within
+    SERVE_MOE_NOISE_FACTOR times the widened replay's and at least
+    SERVE_REL_TOL_BF16 (squared); the fault replay (of the first
+    dispatches only) must land MOE_FAULT_MARGIN outside one of the
+    bounds on the same dispatches' rows, the mean square's ratio taken as
+    an RMS ratio.  Returns the record."""
+    cat = lambda xs: torch.cat(xs)  # noqa: E731
+    ref = cat(plain)
+    err, floor = (int_stats(cat(x), ref) for x in (kern, wide))
+    bad = int_stats(cat(fault), cat(plain[:len(fault)]))
+    lowest = {"max": SERVE_REL_TOL_BF16, "mean_sq": SERVE_REL_TOL_BF16 ** 2}
+    tol = {s: max(lowest[s], SERVE_MOE_NOISE_FACTOR * v)
+           for s, v in floor.items()}
+    got = cat(kern)
+    rec = {"rows": int(ref.shape[0]), "max_rel_err": err["max"],
+           "mean_sq_rel_err": err["mean_sq"], "noise_floor": floor["max"],
+           "mean_sq_noise_floor": floor["mean_sq"], "rel_tol": tol["max"],
+           "mean_sq_rel_tol": tol["mean_sq"],
+           "argmax_agree": (got.argmax(-1) == ref.argmax(-1)).float()
+           .mean().item(), "fault": bad,
+           "fault_over_bound": {"max": bad["max"] / tol["max"],
+                                "rms": math.sqrt(bad["mean_sq"]
+                                                 / tol["mean_sq"])}}
+    for s, v in err.items():
+        if not v <= tol[s]:
+            fail(f"{tag}: the engine's logits read {v} by {s} of the row "
+                 f"errors against the plain replay (> {tol[s]}; {rec})")
+    if not max(rec["fault_over_bound"].values()) >= MOE_FAULT_MARGIN:
+        fail(f"{tag}: the planted fault (gates not renormalised) lands at "
+             f"{rec['fault_over_bound']} of the bounds, not "
+             f"{MOE_FAULT_MARGIN}x outside either ({rec})")
+    return rec
+
+
+def moe_breakdown(torch, eng, entry):
+    """One recorded dispatch run again on ``eng`` (its step as it served,
+    the cache as the run left it): the median wall ms of five calls to
+    the card's end (host clock), and ``torch.profiler``'s device ms in
+    all (busy) and by part: the attention sublayer, and of the MoE FFN
+    the routing, the dispatch, the experts' GEMMs and the combine."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.launch.profile_serve import _device_us as device_us
+    from repro_torch.models import blocks, moe
+    kind, _, (name, args, _) = entry
+    step = getattr(eng, name).__wrapped__      # the step, not its logger
+
+    def ranged(f, label):
+        def run(*a, **k):
+            with record_function(label):
+                return f(*a, **k)
+        return run
+
+    def call():
+        with torch.inference_mode():
+            step(eng.params, eng.cache, *args)
+        torch.cuda.synchronize()
+    call()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e3)
+    pairs = [(moe, n, ranged(getattr(moe, n), n)) for n in MOE_PARTS]
+    blocks.AttnMoeBlock.attend = staticmethod(
+        ranged(blocks.AttnMlpBlock.attend, "attention"))
+    try:
+        def prof():
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as p:
+                call()
+            return p.key_averages()
+        avgs = patched(pairs, prof)
+    finally:
+        del blocks.AttnMoeBlock.attend
+    labels = MOE_PARTS + ("attention",)
+    span = {e.key: device_us(e, own=False) / 1e3 for e in avgs
+            if e.device_type == DeviceType.CPU and e.key in labels}
+    busy = sum(device_us(e) for e in avgs
+               if e.device_type == DeviceType.CUDA and e.key not in labels
+               ) / 1e3
+    parts = {k: span.get(k, 0.0) for k in labels}
+    ffn = sum(parts[k] for k in MOE_PARTS)
+    return {"kind": kind, "live_slots": int(live_rows(kind, args).sum()),
+            "rows": list(args[0].shape), "wall_ms": statistics.median(times),
+            "busy_ms": busy, "attention_ms": parts["attention"],
+            "ffn_ms": ffn, **{f"ffn_{k.strip('_')}_ms": parts[k]
+                              for k in MOE_PARTS}}
+
+
+def serve_moe(torch, card, cfg, params, paged):
+    """Phase 16, one layout: serve phase 3's traffic on the paged pool
+    (phase 3's engine) or the contiguous cache (phase 14's), with every
+    dispatch recorded (``record_dispatches(..., keep_args=True)``) and
+    every route.  Every request completes; each dispatch launches its one
+    attention kernel once a layer and the other none.  Then the
+    dispatches are replayed (``replay``) with the kernels' plain
+    versions and with them on widened inputs (the floor), and the first
+    MOE_FAULT_DISPATCHES with the planted fault, and the logits are held
+    by ``moe_logit_check``.
+    Printed: launches, bytes, routing agreement and drops by dispatch
+    kind, and the device time by part of a full decode dispatch and of
+    a fresh wave.  Returns the launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    import numpy as np
+    layout = "paged" if paged else "contiguous"
+    tag = f"{cfg.name} {layout}"
+    sc = (ServeConfig(max_batch=8, max_prompt=256, page_size=16,
+                      max_seq=2048, max_new_tokens=32, record_logits=True)
+          if paged else ServeConfig(paged=False, prefix_sharing=False,
+                                    **CONTIG_SERVE))
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, params, sc, device=params.embed.device)
+    eng.warmup()
+    reqs = [Request(i, p) for i, p in enumerate(smoke_traffic(
+        cfg.vocab_size))]
+    counters = {"flash_attention_fwd": lambda: fa.launches,
+                "paged_flash_decode_partials": lambda: pfd.launches}
+    log = record_dispatches(eng, counters, keep_args=True)
+    routes = []
+    fa.launches = pfd.launches = 0
+    wall, per_decode = patched(route_recorder(routes),
+                               lambda: drive(torch, eng, reqs, counters))
+    eng.drain()
+    launches = {n: c() for n, c in counters.items()}
+    log = list(log)
+    want = {"fresh": "flash_attention_fwd",
+            "resumed": "paged_flash_decode_partials",
+            "decode": "paged_flash_decode_partials"}
+    kinds = {k: 0 for k in want}
+    for kind, got, _ in log:
+        if kind == "copies":
+            continue
+        kinds[kind] += 1
+        exp = {n: (cfg.n_layers if n == want[kind] else 0) for n in counters}
+        if got != exp:
+            fail(f"{tag}: a {kind} dispatch launched {got}, want {exp}")
+    need = ("fresh", "resumed", "decode") if paged else ("fresh", "decode")
+    if min(kinds[k] for k in need) < 1 or (not paged and kinds["resumed"]):
+        fail(f"{tag}: dispatch kinds {kinds}")
+    for r in reqs:
+        if not r.done or r.failed or len(r.out_tokens) != sc.max_new_tokens:
+            fail(f"{tag}: request {r.rid}: done={r.done} failed={r.failed} "
+                 f"tokens={len(r.out_tokens)}")
+        if not all(bool(np.isfinite(x).all()) for x in r.logits):
+            fail(f"{tag}: request {r.rid}: logits are not finite")
+    if paged and eng.n_shared_admissions < 1:
+        fail(f"{tag}: the shared-prefix request was not admitted as a "
+             "sharer")
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    rec = {"phase": "serve_moe", "arch": cfg.name, "layout": layout,
+           "dtype": str(cfg.dtype), "layers": cfg.n_layers,
+           "requests": len(reqs), "tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "stats": eng.stats(),
+           "dispatches": kinds, "launches": launches,
+           "launches_per_decode_tick": per_decode,
+           "cache_bytes": eng.pool_bytes_per_shard(),
+           "weight_bytes": weight_bytes(params), **memory(torch),
+           "card": card}
+    # device time by part: the first decode dispatch with every slot
+    # live, and the first fresh wave, run again on the engine
+    entries = [x for x in log if x[0] != "copies"]
+    full = [x for x in entries if x[0] == "decode"
+            and bool(live_rows("decode", x[2][1]).all())]
+    rec["breakdown"] = [moe_breakdown(torch, eng, x) for x in (
+        (full or [x for x in entries if x[0] == "decode"])[0],
+        [x for x in entries if x[0] == "fresh"][0])]
+    print(json.dumps(rec), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    kern = [x[2][2][live_rows(x[0], x[2][1]).cpu()] for x in entries]
+    plain, plain_routes = replay(torch, cfg, params, sc, log, "plain")
+    wide, _ = replay(torch, cfg, params, sc, log, "widened")
+    n = [i for i, x in enumerate(log) if x[0] != "copies"][
+        MOE_FAULT_DISPATCHES - 1] + 1
+    bad, _ = replay(torch, cfg, params, sc, log[:n], "fault")
+    by_kind, agreement, set_agreement = moe_routing_stats(
+        cfg, log, routes, plain_routes)
+    check = moe_logit_check(torch, tag, kern, plain, wide, bad)
+    print(json.dumps({"phase": "serve_moe_check", "arch": cfg.name,
+                      "layout": layout, **check,
+                      "fault_dispatches": len(bad),
+                      "routing_agreement": agreement,
+                      "routing_set_agreement": set_agreement,
+                      "routing": by_kind,
+                      "seconds": time.perf_counter() - t0, "card": card}),
+          flush=True)
+    del log, routes, plain_routes
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_phase(torch, card):
+    """Phase 16: granite-moe-1b-a400m (24 attn_moe blocks, d 1024, H 16
+    / KV 8, dh 64, 32 experts, top 8) at full width and depth in bf16,
+    random weights from a seeded generator, after every earlier phase's
+    weights are released: the attention kernels at its shape
+    (``moe_kernel_checks``), ``moe_ffn`` on the card against the CPU
+    (``moe_unit_checks``), then phase 3's traffic on the paged pool and
+    on the contiguous cache (``serve_moe``).  Returns (the kernel
+    records, the launches by kernel, summed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    recs = moe_kernel_checks(torch)
+    recs["unit"] = moe_unit_checks(torch)
+    cfg = get_config(MOE_ARCH)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(16),
+                         device="cuda")
+    total = serve_moe(torch, card, cfg, params, paged=True)
+    for n, v in serve_moe(torch, card, cfg, params, paged=False).items():
+        total[n] += v
+    del params
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "moe_phase", "launches": total,
+                      "seconds": time.perf_counter() - t0, "card": card}),
+          flush=True)
+    return recs, total
+
+
 def kernel_entry(name, source, replaces, launches, rec, design=None):
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + source,
@@ -3721,6 +4247,8 @@ def main() -> None:
     arch_launches = dense_arch_phase(torch, card)
     contig_launches = contiguous_phase(torch, card)
     vision = vision_phase(torch, card)
+    torch.cuda.empty_cache()
+    moe_recs, moe_launches = moe_phase(torch, card)
 
     for rec in (recs[0], recs[2], recs[3]):
         print(json.dumps({
@@ -3823,6 +4351,8 @@ def main() -> None:
                            library_ratio=mla_recs["flash"]["library_ratio"]),
              dk32=pair(flash_recs["dk32_dv32"]),
              dk64=pair(flash_recs["dk64_dv64"]),
+             dh64=dict(pair(moe_recs["flash"]), arch=MOE_ARCH),
+             launches_moe=moe_launches["flash_attention_fwd"],
              launches_dense_archs=arch_runs("flash_attention_fwd"),
              launches_contiguous=contig_launches["flash_attention_fwd"],
              **{arch: pair(g_recs[arch]["flash"]) for arch in GROUP_HEADS}),
@@ -3847,6 +4377,11 @@ def main() -> None:
              launches_dense_archs=arch_runs("paged_flash_decode_partials"),
              launches_contiguous=contig_launches[
                  "paged_flash_decode_partials"],
+             launches_moe=moe_launches["paged_flash_decode_partials"],
+             dh64={"arch": MOE_ARCH,
+                   "decode": numbers(moe_recs["decode"]),
+                   "resumed": numbers(moe_recs["resumed"]),
+                   "edges": moe_recs["edges"]},
              **yardstick(yard["gqa"]),
              **at_groups("fp", {"decode": "decode", "resumed": "resumed"})),
         # rows 4-5: the bf16 route at the engine's split (one 64-key

@@ -1,8 +1,11 @@
-"""Residual blocks of the port: ``attn_mlp`` and ``mla_mlp``.
+"""Residual blocks of the port: ``attn_mlp``, ``mla_mlp`` and ``attn_moe``.
 
-The counterpart of ``repro.models.blocks`` for the two dense block kinds:
-pre-norm attention (GQA, or MLA over the latent pool), then a pre-norm
-SwiGLU (or GELU) MLP.  A block is an ``nn.Module`` holding its weights in
+The counterpart of ``repro.models.blocks`` for three block kinds: pre-norm
+attention (GQA, or MLA over the latent pool), then a pre-norm SwiGLU (or
+GELU) MLP, or (``attn_moe``) GQA then the MoE FFN of
+:mod:`repro_torch.models.moe`, which masks a chunk's padding from routing
+in mode 'chunk' only.  Every block returns its aux loss (0.0 for an MLP).
+A block is an ``nn.Module`` holding its weights in
 the reference's tree (``ln1``, ``attn``, ``ln2``, ``ffn``), so the weight
 bridge maps leaves one to one: raw weights as frozen parameters, and the
 packed weights of a quantized model as :class:`~repro_torch.kernels.ops.
@@ -21,7 +24,10 @@ from repro_torch.models.attention import (apply_attention, attn_specs,
                                           kv_cache_spec, paged_kv_cache_spec)
 from repro_torch.models.mla import (apply_mla, mla_cache_spec, mla_specs,
                                     paged_mla_cache_spec)
-from repro_torch.models.common import ParamSpec, dense, layer_norm, rms_norm
+from repro_torch.models.common import (ParamSpec, chunk_lengths,
+                                       chunk_valid_mask, dense, layer_norm,
+                                       rms_norm)
+from repro_torch.models.moe import moe_ffn, moe_specs
 
 
 def norm_specs(cfg) -> dict:
@@ -115,15 +121,18 @@ class AttnMlpBlock(nn.Module):
         return {name: getattr(self, name).tree()
                 for name in ("ln1", "attn", "ln2", "ffn")}
 
+    def ffn_out(self, h, mode, pos):
+        """The FFN sublayer on the normed ``h``: (output, aux loss)."""
+        return apply_mlp(self.ffn, h, self.cfg), 0.0
+
     def forward(self, x, cache, mode, pos, pages, offset, view):
         a, cache = self.attend(
             self.attn, apply_norm(self.ln1, x, self.cfg), self.cfg,
             cache=cache, mode=mode, pos=pos, pages=pages, offset=offset,
             view=view)
         x = x + a
-        x = x + apply_mlp(self.ffn, apply_norm(self.ln2, x, self.cfg),
-                          self.cfg)
-        return x, cache
+        y, aux = self.ffn_out(apply_norm(self.ln2, x, self.cfg), mode, pos)
+        return x + y, cache, aux
 
 
 def mla_mlp_specs(cfg) -> dict:
@@ -138,6 +147,30 @@ class MlaMlpBlock(AttnMlpBlock):
     :func:`mla_mlp_specs`."""
 
     attend = staticmethod(apply_mla)
+
+
+def attn_moe_specs(cfg) -> dict:
+    return {"ln1": norm_specs(cfg), "attn": attn_specs(cfg),
+            "ln2": norm_specs(cfg), "ffn": moe_specs(cfg)}
+
+
+def _chunk_token_mask(x, mode, pos):
+    """(B, S) valid-token mask in mode 'chunk', else None: decode's
+    inactive slots and 'prefill''s padding are routed like any token."""
+    if mode != "chunk":
+        return None
+    b, s = x.shape[:2]
+    return chunk_valid_mask(chunk_lengths(pos, b, x.device), s)
+
+
+class AttnMoeBlock(AttnMlpBlock):
+    """One ``attn_moe`` block (the reference's ``_apply_attn_block`` with
+    ``ffn="moe"``): GQA attention, then the MoE FFN; ``leaves`` in the
+    layout of :func:`attn_moe_specs`."""
+
+    def ffn_out(self, h, mode, pos):
+        return moe_ffn(self.ffn, h, self.cfg,
+                       token_mask=_chunk_token_mask(h, mode, pos))
 
 
 class Block(NamedTuple):
@@ -155,4 +188,6 @@ BLOCKS = {
                       AttnMlpBlock),
     "mla_mlp": Block(mla_mlp_specs, mla_cache_spec, paged_mla_cache_spec,
                      MlaMlpBlock),
+    "attn_moe": Block(attn_moe_specs, kv_cache_spec, paged_kv_cache_spec,
+                      AttnMoeBlock),
 }

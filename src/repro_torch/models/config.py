@@ -2,9 +2,9 @@
 
 The counterpart of ``repro.models.config`` with torch dtypes.  ``pattern``
 is the block program: ``("scan", kind, count)`` is ``count`` identical
-blocks.  This slice of the port runs only ``attn_mlp`` scans
-(:mod:`repro_torch.models.model` rejects the rest); the MoE, MLA and
-recurrent fields are kept so that the config files and
+blocks.  The port runs one scan of ``attn_mlp``, ``mla_mlp`` or
+``attn_moe`` blocks (:mod:`repro_torch.models.model` rejects the rest);
+the recurrent fields are kept so that the config files and
 ``reduce_config`` read as in the reference.
 """
 from __future__ import annotations

@@ -4,8 +4,9 @@ The counterpart of ``repro.models.model`` for serving.
 The reference scans stacked parameters with ``lax.scan``; the port keeps
 one block module per layer (:data:`~repro_torch.models.blocks.BLOCKS`) in
 an ``nn.ModuleList`` and loops over it.  The port serves a single scan of
-``attn_mlp`` (GQA) or ``mla_mlp`` (MLA) blocks; other block programs
-raise.
+``attn_mlp`` (GQA), ``mla_mlp`` (MLA) or ``attn_moe`` (GQA and the MoE
+FFN) blocks; other block programs raise.  ``forward`` returns the sum of
+the blocks' aux losses, as the reference does.
 
 The paged cache keeps the reference's layout, one pool per stage with the
 page axis at 1: leaves ``k``/``v`` (layers, num_pages, page_size, KV, dh)
@@ -51,18 +52,20 @@ from repro_torch.models.config import ArchConfig
 
 
 def _block_kind(cfg: ArchConfig) -> str:
-    """Block kind of a single scan of ``attn_mlp`` or ``mla_mlp`` — the
-    block programs the port runs."""
+    """Block kind of a single scan of ``attn_mlp``, ``mla_mlp`` or
+    ``attn_moe`` — the block programs the port runs."""
     kind = cfg.pattern[0][1] if len(cfg.pattern) == 1 and \
         cfg.pattern[0][0] == "scan" else None
     if kind in BLOCKS and cfg.input_mode == "tokens":
         return kind
     moe = any(e[0] == "scan" and e[1].endswith("_moe") for e in cfg.pattern)
+    later = ("12, MoE: mla_moe blocks and programs of more than one scan "
+             "are its part 12b" if moe else
+             "13, recurrent and embeds-input families")
     raise ValueError(
         f"{cfg.name}: pattern {cfg.pattern} (input {cfg.input_mode}) is not "
         "in this slice of the port, which serves one token-input scan of "
-        f"{' or '.join(BLOCKS)} blocks (ROADMAP queue 1 item "
-        f"{'12, MoE' if moe else '13, recurrent and embeds-input families'})")
+        f"{' or '.join(BLOCKS)} blocks (ROADMAP queue 1 item {later})")
 
 
 def _n_layers(cfg: ArchConfig) -> int:
@@ -142,7 +145,9 @@ def forward(params: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
             offset: Optional[torch.Tensor] = None,
             view: Optional[ContigView] = None,
             ) -> Tuple[torch.Tensor, list, float]:
-    """Returns (logits (B, S, padded_vocab), cache, aux_loss).
+    """Returns (logits (B, S, padded_vocab), cache, aux_loss): the aux
+    loss is the sum of the blocks' (the MoE load-balancing loss, a float32
+    tensor; the host float 0.0 for a model without experts).
 
     ``cache`` is the paged cache of :func:`init_paged_cache` with
     ``pages`` its (B, P) int32 page table, or the contiguous cache of
@@ -157,12 +162,14 @@ def forward(params: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
                          "queue 1 item 16")
     x = embed_lookup(params.embed, inputs)
     stage = cache[0]
+    aux = 0.0   # a host float while no block has experts: no launch
     for i, block in enumerate(params.blocks):
         layer = {name: pool[i] for name, pool in stage.items()}
-        x, _ = block(x, layer, mode, pos, pages, offset, view)
+        x, _, a = block(x, layer, mode, pos, pages, offset, view)
+        aux = aux + a
     x = apply_norm(params.final_norm, x, cfg)
     logits = dense(x, params.lm_head, cfg.quant)
-    return logits, cache, 0.0
+    return logits, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -250,11 +257,19 @@ def quantize_for_serving(cfg: ArchConfig, params: Transformer, *,
     if cfg.quant is None or cfg.quant.mode not in ("int", "wo"):
         raise ValueError("quantize_for_serving needs an int/wo QuantConfig "
                          f"on cfg.quant, got {cfg.quant}")
-    if _block_kind(cfg) == "mla_mlp":
+    kind = _block_kind(cfg)
+    if kind == "mla_mlp":
         # MLA decode absorbs W_UK / W_UV into einsums on the raw weights
         raise NotImplementedError(
             f"{cfg.name}: packed MLA weights are not in this slice of the "
             "port (ROADMAP queue 1 item 11)")
+    if kind == "attn_moe":
+        # the reference keeps the (E, d, f) expert banks raw under its
+        # fake-quant emulation, which the port does not have
+        raise NotImplementedError(
+            f"{cfg.name}: a quantized MoE model runs the reference's "
+            "fake-quant emulation of its expert banks, not in the port yet "
+            "(ROADMAP queue 1 item 16)")
     specs = param_specs(cfg)
     tree = params.tree()
     if consume:

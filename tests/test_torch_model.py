@@ -135,7 +135,9 @@ def test_paged_cache_keeps_reference_layout():
 def test_unported_block_program_raises():
     cfg = ArchConfig(name="m", family="moe", n_layers=2, d_model=32,
                      n_heads=4, n_kv_heads=2, d_ff=0, vocab_size=64,
-                     n_experts=4, top_k=2)
+                     n_experts=4, top_k=2,
+                     pattern=(("scan", "attn_mlp", 1),
+                              ("scan", "attn_moe", 1)))
     with pytest.raises(ValueError, match="ROADMAP"):
         param_specs(cfg)
 

@@ -1,5 +1,7 @@
 """Rules the port keeps: no JAX, no code of the JAX package, no silent CPU
 fallback, and visible rejection of what this slice does not serve."""
+import contextlib
+import io
 import os
 import re
 import subprocess
@@ -10,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduce_config
+from repro_torch.models.config import ArchConfig
 from repro_torch.core.pageformat import get_format
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
@@ -188,6 +191,54 @@ def test_real_deepseek_v2_lite_raises_naming_the_moe_item():
         init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError, match=r"ROADMAP queue 1 item 12"):
         init_paged_cache(cfg, 4, 16, device="cpu")
+
+
+# -- MoE ----------------------------------------------------------------------
+
+def test_packed_moe_weights_are_rejected():
+    """The reference keeps MoE expert banks raw under its fake-quant
+    emulation, which the port does not have (item 16)."""
+    cfg = reduce_config(get_config("granite-moe-1b-a400m"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cfg = cfg.with_(quant=launcher.parse_quant("w4a16"))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 16"):
+        quantize_for_serving(cfg, params)
+
+
+MOE_FIELDS = dict(name="m", family="moe", n_layers=2, d_model=32,
+                  n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=64,
+                  n_experts=4, top_k=2, d_ff_expert=16)
+
+
+@pytest.mark.parametrize("pattern", [
+    (("scan", "mla_moe", 2),),
+    (("scan", "attn_mlp", 1), ("scan", "attn_moe", 1)),
+    (("scan", "attn_moe", 1), ("scan", "attn_moe", 1))])
+def test_mla_moe_and_two_stage_programs_raise_naming_item_12(pattern):
+    cfg = ArchConfig(**MOE_FIELDS, kv_lora_rank=16, pattern=pattern)
+    with pytest.raises(ValueError, match=r"ROADMAP queue 1 item 12, MoE"):
+        init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+
+def test_moe_family_config_has_one_attn_moe_scan():
+    """``family="moe"`` with ``d_ff=0`` (the reference's FAMILY_CFGS
+    config) derives one scan of attn_moe blocks and is served."""
+    cfg = ArchConfig(**dict(MOE_FIELDS, d_ff=0))
+    assert cfg.pattern == (("scan", "attn_moe", 2),)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert tuple(params.blocks[1].ffn["w_up"].shape) == (4, 32, 16)
+    assert "w_gate" in params.blocks[0].ffn and \
+        "shared" not in params.blocks[0].ffn
+
+
+def test_launcher_serves_granite_reduced_on_cpu():
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launcher.main(["--arch", "granite-moe-1b-a400m", "--reduce",
+                       "--device", "cpu", "--requests", "3",
+                       "--max-batch", "2", "--max-new-tokens", "4"])
+    lines = out.getvalue().splitlines()
+    assert sum(ln.startswith("req ") and "[done" in ln for ln in lines) == 3
 
 
 def test_packed_mla_weights_are_rejected():
