@@ -179,19 +179,34 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
       decode split, on a resumed 256-row chunk and at every PAGED_EDGES
       case with the planted shift outside), and ``moe_ffn`` on the card
       in float32 on the CPU tests' planted ties and overflow, within
-      MOE_UNIT_TOL of the CPU port's and its routing bit for bit.  Then
+      MOE_UNIT's tol of the CPU port's and its routing bit for bit.  Then
       phase 3's traffic on the paged pool and on the contiguous cache,
       launches per dispatch as in phases 3 and 14, every dispatch's
       arguments recorded: a MoE dispatch's expert capacity comes from its
       shape, so a teacher-forced forward is no reference; the dispatches
       are replayed instead through an engine whose attention runs the
-      kernels' plain versions (and again on widened inputs, the floor,
-      and with the gates not renormalised, the planted fault), and the
-      logits are held as phase 7 holds its (``moe_logit_check``).  The
-      routing agreement and the dropped assignments by dispatch kind,
+      kernels' plain versions on the kernel run's routing (and again on
+      widened inputs, the floor, and with the gates not renormalised,
+      the planted fault), and the logits are held as phase 7 holds its
+      (``moe_logit_check``).  The routing agreement (a plain replay on
+      its own routing) and the dropped assignments by dispatch kind,
       the weights', cache's and peak bytes, and a decode dispatch's and
       a fresh wave's wall, busy, attention and FFN device ms are printed
       beside the card.
+  17. the published deepseek-v2-lite-16b (a two-scan program: one
+      ``mla_mlp`` block, then 26 ``mla_moe`` blocks, each with 64 routed
+      experts top-6 and 2 shared experts) at full width and depth in
+      bf16, after every earlier phase's weights are released
+      (``mla_moe_phase``).  First ``moe_ffn`` on the card in float32 at
+      E 64, top 6 with shared experts, within MLA_MOE_UNIT's tol of the CPU
+      port's and its routing bit for bit.  Then phase 16's serving and
+      replays on phase 3's traffic, paged and contiguous: each dispatch
+      runs its MLA kernel once a layer (the flash forward on a fresh
+      wave, the paged partials on a resumed wave's expanded window, the
+      MLA decode partials at decode), the replays patch the MLA module's
+      kernel names as well as the GQA module's and launch no kernel, and
+      a second planted fault leaves the shared experts' output out; each
+      fault lands MOE_FAULT_MARGIN outside a bound.
 
 Phase 2 also holds the MLA path's kernels (phase 2b): the flash forward
 at q/k 192 / v 128 on a fresh 256-token chunk (KV = H = 16), the paged
@@ -3593,7 +3608,8 @@ def vision_phase(torch, card):
 MOE_ARCH = "granite-moe-1b-a400m"
 # the replayed logits (``moe_logit_check``): the kernel engine's logits
 # against a replay of its own dispatches with the kernels' plain versions
-# (same tokens, same dispatch shapes, so the same capacities), held by the
+# (same tokens, same dispatch shapes, so the same capacities, and the kernel
+# run's routing, ``route_forcer``: no bf16 routing flip), held by the
 # largest row error and the mean square of the row errors, each within
 # this multiple of the same statistic of a kernel-free floor (the replay
 # with attention on widened inputs against the plain replay) and at least
@@ -3604,35 +3620,40 @@ SERVE_MOE_NOISE_FACTOR = 1.5
 MOE_FAULT_MARGIN = 1.3
 # the fault replay runs the log's first dispatches only (every fresh
 # wave of the first eight prompts, and decode steps after them): on the
-# card the fault lands 4.6x outside the RMS bound (PERF.md §6)
+# card the gates fault lands 4.4x (granite) and 9.7-9.8x (deepseek) outside
+# the RMS bound (PERF.md §6)
 MOE_FAULT_DISPATCHES = 24
-# moe_ffn on the card in float32 against the CPU port on the CPU tests'
-# planted ties and overflow: summation order only
-MOE_UNIT_TOL = 1e-5
-# the CPU tests' (tests/torch_moe_cases.py) shapes, factor and masks
-MOE_UNIT = dict(B=3, S=20, D=32, E=8, K=2, F=16, factor=0.5)
-MOE_UNIT_MASKS = {"none": None, "chunk": (20, 13, 5),
-                  "masked_row": (20, 7, 0)}
+# moe_ffn on the card in float32 against the CPU port (``moe_unit_checks``)
+# on the CPU tests' (tests/torch_moe_cases.py) shapes, capacity factor,
+# masks and planted ties and overflow: summation order only
+MOE_UNIT = dict(B=3, S=20, D=32, E=8, K=2, F=16, shared=0, factors=(0.5,),
+                masks={"none": None, "chunk": (20, 13, 5),
+                       "masked_row": (20, 7, 0)}, tol=1e-5)
 # the parts of a dispatch timed apart (``moe_breakdown``): the functions
 # of models/moe.py and the attention sublayer of models/blocks.py
 MOE_PARTS = ("route", "_dispatch", "_expert_swiglu", "_combine")
 
 
-def moe_unit_case(torch, ties, device):
-    """The CPU tests' inputs (``tests/torch_moe_cases.py::unit_inputs``,
-    seed 0): float32 weights and tokens with two equal router columns
-    (``ties`` 'columns') or four tokens of zeros, whose E probabilities
-    all tie ('row'); and their config at capacity factor 0.5."""
+def moe_unit_case(torch, u, ties, factor, device):
+    """Float32 weights (the routed banks, the router and, where ``u`` has
+    shared experts, the ``shared`` subtree) and tokens at the shapes of
+    ``u`` (MOE_UNIT or MLA_MOE_UNIT) from seed 0, with ``ties`` planted
+    (two equal router columns, 'columns', or four tokens of zeros, whose
+    E probabilities all tie, 'row'), and their config at capacity
+    ``factor``.  At MOE_UNIT these are the CPU tests' inputs
+    (``tests/torch_moe_cases.py::unit_inputs``)."""
     import numpy as np
     from repro_torch.models.config import ArchConfig
-    u = MOE_UNIT
     b, s, d, e, f = u["B"], u["S"], u["D"], u["E"], u["F"]
+    fs = f * u["shared"]
     rng = np.random.RandomState(0)
     p = {"router": rng.randn(d, e) * 0.3,
          "w_gate": rng.randn(e, d, f) / np.sqrt(d),
          "w_up": rng.randn(e, d, f) / np.sqrt(d),
          "w_down": rng.randn(e, f, d) / np.sqrt(f)}
-    p = {k: v.astype(np.float32) for k, v in p.items()}
+    sh = {"w_gate": rng.randn(d, fs) / np.sqrt(d),
+          "w_up": rng.randn(d, fs) / np.sqrt(d),
+          "w_down": rng.randn(fs, d) / np.sqrt(fs)} if fs else None
     x = rng.randn(b, s, d).astype(np.float32)
     if ties == "columns":
         p["router"][:, 5] = p["router"][:, 2]
@@ -3641,54 +3662,59 @@ def moe_unit_case(torch, ties, device):
     cfg = ArchConfig(name="moe_unit", family="moe", n_layers=1, d_model=d,
                      n_heads=4, n_kv_heads=2, d_ff=0, vocab_size=64,
                      n_experts=e, top_k=u["K"], d_ff_expert=f,
-                     capacity_factor=u["factor"], dtype=torch.float32)
-    return ({k: torch.from_numpy(v).to(device) for k, v in p.items()},
-            torch.from_numpy(x).to(device), cfg)
+                     n_shared_experts=u["shared"], capacity_factor=factor,
+                     dtype=torch.float32)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa
+    p = {k: t(v) for k, v in p.items()}
+    if sh:
+        p["shared"] = {k: t(v) for k, v in sh.items()}
+    return p, t(x), cfg
 
 
-def moe_unit_checks(torch):
-    """``moe_ffn`` on the card in float32 on the CPU tests' planted ties
-    and overflow (capacity factor 0.5), with and without a chunk mask
-    (one of them with a wholly masked row): output and aux within
-    MOE_UNIT_TOL of the port's on the CPU, and each assignment's expert,
-    capacity slot and ``keep`` bit for bit (the stable sort,
-    ``searchsorted`` and the scatter on the card)."""
+def moe_unit_checks(torch, u, phase):
+    """``moe_ffn`` on the card in float32 at the shapes of ``u`` (MOE_UNIT
+    or MLA_MOE_UNIT, shared experts where it has them), at each of its
+    capacity factors, on planted ties, with and without a chunk mask (one
+    with a wholly masked row): output and aux within ``u["tol"]`` of the
+    port's on the CPU, and each assignment's expert, capacity slot and
+    ``keep`` bit for bit (the stable sort, ``searchsorted`` and the
+    scatter on the card).  Printed as ``phase``."""
     import numpy as np
     from repro_torch.models import moe
-    u = MOE_UNIT
-    recs = {}
-    for ties in ("columns", "row"):
-        for mname, lens in MOE_UNIT_MASKS.items():
-            runs = {}
-            for dev in ("cpu", "cuda"):
-                p, x, cfg = moe_unit_case(torch, ties, dev)
-                mask = None if lens is None else torch.from_numpy(
-                    np.arange(u["S"])[None, :]
-                    < np.asarray(lens)[:, None]).to(dev)
-                y, aux = moe.moe_ffn(p, x, cfg, mask)
-                r = moe.route(p, x.reshape(-1, u["D"]), cfg, mask)
-                routed = r.experts.reshape(-1) < u["E"]
-                runs[dev] = (y.cpu(), float(aux), r.idx_e.cpu(),
-                             r.idx_c.cpu(), r.keep.cpu(),
-                             int((~r.keep & routed).sum()))
-            (yc, ac, ec, cc, kc, dc), (yg, ag, eg, cg, kg, dg) = \
-                runs["cpu"], runs["cuda"]
-            key = f"{ties}_{mname}"
-            rec = {"max_abs_err": (yg - yc).abs().max().item(),
-                   "aux_err": abs(ag - ac), "tol": MOE_UNIT_TOL,
-                   "routing_bitwise": bool(torch.equal(eg, ec)
-                                           and torch.equal(cg, cc)
-                                           and torch.equal(kg, kc)),
-                   "dropped": [dc, dg]}
-            recs[key] = rec
-            if not (rec["max_abs_err"] <= MOE_UNIT_TOL
-                    and rec["aux_err"] <= MOE_UNIT_TOL):
-                fail(f"moe_ffn on the card, {key}: {rec}: beyond "
-                     f"{MOE_UNIT_TOL} of the CPU port's")
-            if not rec["routing_bitwise"]:
-                fail(f"moe_ffn on the card, {key}: its routing (experts, "
-                     "capacity slots, keep) differs from the CPU port's")
-    print(json.dumps({"phase": "moe_unit", "cases": recs}), flush=True)
+    tol, recs = u["tol"], {}
+    for factor in u["factors"]:
+        for ties in ("columns", "row"):
+            for mname, lens in u["masks"].items():
+                runs = {}
+                for dev in ("cpu", "cuda"):
+                    p, x, cfg = moe_unit_case(torch, u, ties, factor, dev)
+                    mask = None if lens is None else torch.from_numpy(
+                        np.arange(u["S"])[None, :]
+                        < np.asarray(lens)[:, None]).to(dev)
+                    y, aux = moe.moe_ffn(p, x, cfg, mask)
+                    r = moe.route(p, x.reshape(-1, u["D"]), cfg, mask)
+                    routed = r.experts.reshape(-1) < u["E"]
+                    runs[dev] = (y.cpu(), float(aux), r.idx_e.cpu(),
+                                 r.idx_c.cpu(), r.keep.cpu(),
+                                 int((~r.keep & routed).sum()), r.cap)
+                (yc, ac, ec, cc, kc, dc, cap), (yg, ag, eg, cg, kg, dg, _) = \
+                    runs["cpu"], runs["cuda"]
+                key = f"f{factor}_{ties}_{mname}"
+                rec = {"max_abs_err": (yg - yc).abs().max().item(),
+                       "aux_err": abs(ag - ac), "tol": tol,
+                       "routing_bitwise": bool(torch.equal(eg, ec)
+                                               and torch.equal(cg, cc)
+                                               and torch.equal(kg, kc)),
+                       "dropped": [dc, dg], "capacity": cap}
+                recs[key] = rec
+                if not (rec["max_abs_err"] <= tol and rec["aux_err"] <= tol):
+                    fail(f"{phase}: moe_ffn on the card, {key}: {rec}: "
+                         f"beyond {tol} of the CPU port's")
+                if not rec["routing_bitwise"]:
+                    fail(f"{phase}: moe_ffn on the card, {key}: its routing "
+                         "(experts, capacity slots, keep) differs from the "
+                         "CPU port's")
+    print(json.dumps({"phase": phase, "cases": recs}), flush=True)
     return recs
 
 
@@ -3745,15 +3771,45 @@ def route_recorder(routes):
     return [(moe, "route", rec)]
 
 
+def route_forcer(torch, routes, renormalise=True):
+    """(module, name, value) pairs that make ``moe._top_k_gates``, call
+    after call, choose the experts of ``routes`` (``route_recorder``'s
+    record of the kernel run; a masked token's sentinel stands in for
+    any expert, the mask puts it back), with the replay's own router
+    probabilities at them as gates, renormalised as the port's are
+    unless ``renormalise`` is False (the planted fault).  The capacity
+    slots and ``keep`` then follow from the experts and the mask as in
+    the kernel run."""
+    from repro_torch.models import moe
+    calls = iter(routes)
+
+    def forced(probs, k):
+        experts = next(calls)[0].clamp_max(probs.shape[-1] - 1)
+        gates = probs.gather(1, experts)
+        if renormalise:
+            gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True),
+                                            1e-9)
+        return gates, experts
+    return [(moe, "_top_k_gates", forced)]
+
+
+# the replays' planted faults: the gates not renormalised ('fault'), the
+# shared experts' output left out ('no_shared')
+MOE_FAULTS = ("fault", "no_shared")
+
+
 def replay_attention(torch, how):
     """(module, name, value) pairs for a replay: the attention kernels
-    replaced by their plain versions ('plain', 'fault'), or by the plain
-    versions on inputs widened to float32 ('widened', the noise floor:
-    nothing rounds to bf16 inside attention); 'fault' also takes the
-    gates' renormalisation out of the routing."""
+    replaced by their plain versions, where the GQA module
+    (``models/attention.py``) and the MLA module (``models/mla.py``) call
+    them by name ('plain' and the faults), or by the plain versions on
+    inputs widened to float32 ('widened', the noise floor: nothing rounds
+    to bf16 inside attention); 'no_shared' also takes the shared experts'
+    output out of the MoE FFN ('fault' is ``route_forcer``'s)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.models import attention as attn_mod
+    from repro_torch.models import mla as mla_mod
     from repro_torch.models import moe
     wide = (lambda t: t.float()) if how == "widened" else (lambda t: t)
 
@@ -3767,22 +3823,44 @@ def replay_attention(torch, how):
             wide(k_pool), wide(v_pool), wide(q), tbl, qpos, kv_valid,
             pages_per_split, **quant)
 
-    def unnormalised(probs, k):
-        gates, experts = torch.sort(probs, dim=-1, descending=True,
-                                    stable=True)
-        return gates[:, :k], experts[:, :k]
+    def mla_partials(pool, q_c, q_rope, tbl, pos, r, scale_dim, *,
+                     scale_pool=None, bits=None, pages_per_split=1):
+        # a quantized pool is dequantized to the (widened) query type
+        return pfd.mla_paged_decode_partials_plain(
+            pool if bits is not None else wide(pool), wide(q_c),
+            wide(q_rope), tbl, pos, r, scale_dim, pages_per_split,
+            scale_pool=scale_pool, bits=bits)
+
     pairs = [(attn_mod, "flash_attention", flash),
-             (attn_mod, "paged_flash_decode_partials", paged)]
-    if how == "fault":
-        pairs.append((moe, "_top_k_gates", unnormalised))
+             (attn_mod, "paged_flash_decode_partials", paged),
+             (mla_mod, "flash_attention", flash),
+             (mla_mod, "mla_paged_decode_partials", mla_partials)]
+    if how == "no_shared":
+        pairs.append((moe, "_shared_experts",
+                      lambda sh, xf, cfg: torch.zeros_like(xf)))
     return pairs
 
 
-def replay(torch, cfg, params, sc, log, how):
+def kernel_launches():
+    """Every attention kernel's launch count, by wrapper."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_flash_decode as pfd
+    return {"flash_attention_fwd": fa.launches,
+            "paged_flash_decode_partials": pfd.launches,
+            "paged_flash_decode_partials_quant": pfd.quant_launches,
+            "mla_paged_decode_partials": pfd.mla_launches,
+            "mla_paged_decode_partials_quant": pfd.mla_quant_launches}
+
+
+def replay(torch, cfg, params, sc, log, how, forced=None):
     """Feed the dispatches of ``log`` (``record_dispatches(...,
     keep_args=True)``), copy-on-write page copies included, through a new
-    engine in their order, under ``replay_attention(how)``.  Returns each
-    dispatch's live rows' logits (CPU float32) and its routes."""
+    engine in their order, under ``replay_attention(how)``, which must
+    launch no kernel, and where ``forced`` (the kernel run's routes) is
+    given, on the kernel run's routing (``route_forcer``; the 'fault'
+    replay's gates not renormalised), which it must reproduce: expert and
+    ``keep`` of every assignment bit for bit.  Returns each dispatch's
+    live rows' logits (CPU float32) and its routes."""
     from repro_torch.serve import ServingEngine
     eng = ServingEngine(cfg, params, sc, device=params.embed.device)
     routes, out = [], []
@@ -3796,10 +3874,27 @@ def replay(torch, cfg, params, sc, log, how):
                 logits, eng.cache = getattr(eng, name)(eng.params,
                                                        eng.cache, *args)
                 out.append(logits[live_rows(kind, args)].float().cpu())
-    patched(route_recorder(routes) + replay_attention(torch, how), run)
+    pairs = route_recorder(routes) + replay_attention(torch, how)
+    if forced is not None:
+        pairs += route_forcer(torch, forced, renormalise=how != "fault")
+    before = kernel_launches()
+    patched(pairs, run)
+    if kernel_launches() != before:
+        fail(f"{cfg.name}: the {how!r} replay launched kernels: "
+             f"{before} -> {kernel_launches()}")
+    if forced is not None and not all(
+            torch.equal(e, fe) and torch.equal(k, fk)
+            for (e, k), (fe, fk) in zip(routes, forced, strict=False)):
+        fail(f"{cfg.name}: the forced {how!r} replay routed otherwise than "
+             "the kernel run")
     del eng
     torch.cuda.empty_cache()
     return out, routes
+
+
+def moe_layers(cfg) -> int:
+    """The layers whose FFN routes (``attn_moe`` and ``mla_moe``)."""
+    return sum(e[2] for e in cfg.pattern if e[1].endswith("_moe"))
 
 
 def moe_routing_stats(cfg, log, routes, plain_routes):
@@ -3808,7 +3903,7 @@ def moe_routing_stats(cfg, log, routes, plain_routes):
     the share of live (token, k) choices the plain replay agrees on, at
     the same k and anywhere in the token's top k.  Returns (by kind, the
     two shares)."""
-    e, n = cfg.n_experts, cfg.n_layers
+    e, n = cfg.n_experts, moe_layers(cfg)
     kinds = {k: {"dispatches": 0, "assignments": 0, "dropped": 0,
                  "live_assignments": 0, "live_dropped": 0, "agree": 0,
                  "agree_set": 0}
@@ -3816,7 +3911,7 @@ def moe_routing_stats(cfg, log, routes, plain_routes):
     disp = [(kind, args) for kind, _, (_, args, _) in log if kind != "copies"]
     if len(routes) != n * len(disp) or len(plain_routes) != len(routes):
         fail(f"moe routing: {len(routes)} and {len(plain_routes)} routes "
-             f"recorded for {len(disp)} dispatches of {n} layers")
+             f"recorded for {len(disp)} dispatches of {n} MoE layers")
     for i, (kind, args) in enumerate(disp):
         rec = kinds[kind]
         rec["dispatches"] += 1
@@ -3845,19 +3940,18 @@ def moe_routing_stats(cfg, log, routes, plain_routes):
     return kinds, share["agree"], share["agree_set"]
 
 
-def moe_logit_check(torch, tag, kern, plain, wide, fault):
-    """Hold the kernel engine's logits (``kern``, live rows a dispatch)
+def moe_logit_check(torch, tag, kern, plain, wide, faults):
+    """Hold the kernel engine's logits (``kern``, a dispatch's rows)
     against the plain replay's by ``int_stats`` (the largest row error
     and the mean square of the row errors), each within
     SERVE_MOE_NOISE_FACTOR times the widened replay's and at least
-    SERVE_REL_TOL_BF16 (squared); the fault replay (of the first
-    dispatches only) must land MOE_FAULT_MARGIN outside one of the
-    bounds on the same dispatches' rows, the mean square's ratio taken as
-    an RMS ratio.  Returns the record."""
+    SERVE_REL_TOL_BF16 (squared); each fault replay (``faults``: name ->
+    rows of the first dispatches only) must land MOE_FAULT_MARGIN outside
+    one of the bounds on the same dispatches' rows, the mean square's
+    ratio taken as an RMS ratio.  Returns the record."""
     cat = lambda xs: torch.cat(xs)  # noqa: E731
     ref = cat(plain)
     err, floor = (int_stats(cat(x), ref) for x in (kern, wide))
-    bad = int_stats(cat(fault), cat(plain[:len(fault)]))
     lowest = {"max": SERVE_REL_TOL_BF16, "mean_sq": SERVE_REL_TOL_BF16 ** 2}
     tol = {s: max(lowest[s], SERVE_MOE_NOISE_FACTOR * v)
            for s, v in floor.items()}
@@ -3867,31 +3961,36 @@ def moe_logit_check(torch, tag, kern, plain, wide, fault):
            "mean_sq_noise_floor": floor["mean_sq"], "rel_tol": tol["max"],
            "mean_sq_rel_tol": tol["mean_sq"],
            "argmax_agree": (got.argmax(-1) == ref.argmax(-1)).float()
-           .mean().item(), "fault": bad,
-           "fault_over_bound": {"max": bad["max"] / tol["max"],
-                                "rms": math.sqrt(bad["mean_sq"]
-                                                 / tol["mean_sq"])}}
+           .mean().item()}
     for s, v in err.items():
         if not v <= tol[s]:
             fail(f"{tag}: the engine's logits read {v} by {s} of the row "
                  f"errors against the plain replay (> {tol[s]}; {rec})")
-    if not max(rec["fault_over_bound"].values()) >= MOE_FAULT_MARGIN:
-        fail(f"{tag}: the planted fault (gates not renormalised) lands at "
-             f"{rec['fault_over_bound']} of the bounds, not "
-             f"{MOE_FAULT_MARGIN}x outside either ({rec})")
+    for name, rows in faults.items():
+        bad = int_stats(cat(rows), cat(plain[:len(rows)]))
+        over = {"max": bad["max"] / tol["max"],
+                "rms": math.sqrt(bad["mean_sq"] / tol["mean_sq"])}
+        rec[name], rec[f"{name}_over_bound"] = bad, over
+        if not max(over.values()) >= MOE_FAULT_MARGIN:
+            fail(f"{tag}: the planted fault {name!r} lands at {over} of the "
+                 f"bounds, not {MOE_FAULT_MARGIN}x outside either ({rec})")
     return rec
 
 
-def moe_breakdown(torch, eng, entry):
+def moe_breakdown(torch, eng, entry, parts=MOE_PARTS):
     """One recorded dispatch run again on ``eng`` (its step as it served,
     the cache as the run left it): the median wall ms of five calls to
     the card's end (host clock), and ``torch.profiler``'s device ms in
-    all (busy) and by part: the attention sublayer, and of the MoE FFN
-    the routing, the dispatch, the experts' GEMMs and the combine."""
+    all (busy) and by part: the attention sublayers, the FFN sublayers,
+    and of the MoE FFN each function of ``parts`` (the routing, the
+    dispatch, the experts' GEMMs, the combine and, where the model has
+    them, the shared experts)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.launch.profile_serve import (ATTENTION, FFN,
+                                                  _wrap_sublayers)
     from repro_torch.launch.profile_serve import _device_us as device_us
-    from repro_torch.models import blocks, moe
+    from repro_torch.models import moe
     kind, _, (name, args, _) = entry
     step = getattr(eng, name).__wrapped__      # the step, not its logger
 
@@ -3911,9 +4010,8 @@ def moe_breakdown(torch, eng, entry):
         t0 = time.perf_counter()
         call()
         times.append((time.perf_counter() - t0) * 1e3)
-    pairs = [(moe, n, ranged(getattr(moe, n), n)) for n in MOE_PARTS]
-    blocks.AttnMoeBlock.attend = staticmethod(
-        ranged(blocks.AttnMlpBlock.attend, "attention"))
+    pairs = [(moe, n, ranged(getattr(moe, n), n)) for n in parts]
+    restore = _wrap_sublayers()
     try:
         def prof():
             with profile(activities=[ProfilerActivity.CPU,
@@ -3922,32 +4020,41 @@ def moe_breakdown(torch, eng, entry):
             return p.key_averages()
         avgs = patched(pairs, prof)
     finally:
-        del blocks.AttnMoeBlock.attend
-    labels = MOE_PARTS + ("attention",)
+        restore()
+    labels = parts + (ATTENTION, FFN)
     span = {e.key: device_us(e, own=False) / 1e3 for e in avgs
             if e.device_type == DeviceType.CPU and e.key in labels}
     busy = sum(device_us(e) for e in avgs
                if e.device_type == DeviceType.CUDA and e.key not in labels
                ) / 1e3
-    parts = {k: span.get(k, 0.0) for k in labels}
-    ffn = sum(parts[k] for k in MOE_PARTS)
+    part_ms = {k: span.get(k, 0.0) for k in labels}
+    ffn = sum(part_ms[k] for k in parts)
+    # the FFN sublayers' range holds the parts, the aux loss and any dense
+    # MLP layer too
     return {"kind": kind, "live_slots": int(live_rows(kind, args).sum()),
             "rows": list(args[0].shape), "wall_ms": statistics.median(times),
-            "busy_ms": busy, "attention_ms": parts["attention"],
-            "ffn_ms": ffn, **{f"ffn_{k.strip('_')}_ms": parts[k]
-                              for k in MOE_PARTS}}
+            "busy_ms": busy, "attention_ms": part_ms[ATTENTION],
+            "ffn_ms": ffn, "ffn_sublayers_ms": part_ms[FFN],
+            **{f"ffn_{k.strip('_')}_ms": part_ms[k] for k in parts}}
 
 
-def serve_moe(torch, card, cfg, params, paged):
-    """Phase 16, one layout: serve phase 3's traffic on the paged pool
-    (phase 3's engine) or the contiguous cache (phase 14's), with every
-    dispatch recorded (``record_dispatches(..., keep_args=True)``) and
-    every route.  Every request completes; each dispatch launches its one
-    attention kernel once a layer and the other none.  Then the
-    dispatches are replayed (``replay``) with the kernels' plain
-    versions and with them on widened inputs (the floor), and the first
-    MOE_FAULT_DISPATCHES with the planted fault, and the logits are held
-    by ``moe_logit_check``.
+def serve_moe(torch, card, cfg, params, paged, phase="serve_moe"):
+    """Phase 16 (and 17), one layout: serve phase 3's traffic on the
+    paged pool (phase 3's engine) or the contiguous cache (phase 14's),
+    with every dispatch recorded (``record_dispatches(...,
+    keep_args=True)``) and every route.  Every
+    request completes; each dispatch launches its one attention kernel
+    once a layer and the others none (GQA: the flash forward on a fresh
+    wave, the paged partials otherwise; MLA: the MLA decode partials at
+    decode).  Then the dispatches are replayed (``replay``) with the
+    kernels' plain versions on the kernel run's routing, with them on
+    widened inputs (the floor) on that routing too, and the first
+    MOE_FAULT_DISPATCHES with each planted fault (the shared experts'
+    only where the model has them), and the logits are held by
+    ``moe_logit_check``: forced routing keeps bf16 routing flips (top k
+    of E near-ties, capacity) out of the bound, which then reads the
+    attention's and the FFN's rounding.  A plain replay on its own
+    routing gives the routing agreement.
     Printed: launches, bytes, routing agreement and drops by dispatch
     kind, and the device time by part of a full decode dispatch and of
     a fresh wave.  Returns the launches."""
@@ -3955,6 +4062,8 @@ def serve_moe(torch, card, cfg, params, paged):
     from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.serve import Request, ServeConfig, ServingEngine
     import numpy as np
+    mla = bool(cfg.kv_lora_rank)
+    shared = bool(cfg.n_shared_experts)
     layout = "paged" if paged else "contiguous"
     tag = f"{cfg.name} {layout}"
     sc = (ServeConfig(max_batch=8, max_prompt=256, page_size=16,
@@ -3969,17 +4078,20 @@ def serve_moe(torch, card, cfg, params, paged):
         cfg.vocab_size))]
     counters = {"flash_attention_fwd": lambda: fa.launches,
                 "paged_flash_decode_partials": lambda: pfd.launches}
+    want = {"fresh": "flash_attention_fwd",
+            "resumed": "paged_flash_decode_partials",
+            "decode": "paged_flash_decode_partials"}
+    if mla:
+        counters["mla_paged_decode_partials"] = lambda: pfd.mla_launches
+        want["decode"] = "mla_paged_decode_partials"
     log = record_dispatches(eng, counters, keep_args=True)
     routes = []
-    fa.launches = pfd.launches = 0
+    fa.launches = pfd.launches = pfd.mla_launches = 0
     wall, per_decode = patched(route_recorder(routes),
                                lambda: drive(torch, eng, reqs, counters))
     eng.drain()
     launches = {n: c() for n, c in counters.items()}
     log = list(log)
-    want = {"fresh": "flash_attention_fwd",
-            "resumed": "paged_flash_decode_partials",
-            "decode": "paged_flash_decode_partials"}
     kinds = {k: 0 for k in want}
     for kind, got, _ in log:
         if kind == "copies":
@@ -4001,8 +4113,9 @@ def serve_moe(torch, card, cfg, params, paged):
         fail(f"{tag}: the shared-prefix request was not admitted as a "
              "sharer")
     n_tok = sum(len(r.out_tokens) for r in reqs)
-    rec = {"phase": "serve_moe", "arch": cfg.name, "layout": layout,
+    rec = {"phase": phase, "arch": cfg.name, "layout": layout,
            "dtype": str(cfg.dtype), "layers": cfg.n_layers,
+           "moe_layers": moe_layers(cfg),
            "requests": len(reqs), "tokens": n_tok, "wall_s": wall,
            "tokens_per_s": n_tok / wall, "stats": eng.stats(),
            "dispatches": kinds, "launches": launches,
@@ -4015,30 +4128,39 @@ def serve_moe(torch, card, cfg, params, paged):
     entries = [x for x in log if x[0] != "copies"]
     full = [x for x in entries if x[0] == "decode"
             and bool(live_rows("decode", x[2][1]).all())]
-    rec["breakdown"] = [moe_breakdown(torch, eng, x) for x in (
+    parts = MOE_PARTS + (("_shared_experts",) if shared else ())
+    rec["breakdown"] = [moe_breakdown(torch, eng, x, parts) for x in (
         (full or [x for x in entries if x[0] == "decode"])[0],
         [x for x in entries if x[0] == "fresh"][0])]
     print(json.dumps(rec), flush=True)
     del eng
     torch.cuda.empty_cache()
     kern = [x[2][2][live_rows(x[0], x[2][1]).cpu()] for x in entries]
-    plain, plain_routes = replay(torch, cfg, params, sc, log, "plain")
-    wide, _ = replay(torch, cfg, params, sc, log, "widened")
+    # the plain replay on its own routing: the routing agreement, and the
+    # logits' distance with routing flips in it (printed, not held)
+    free, free_routes = replay(torch, cfg, params, sc, log, "plain")
+    plain, _ = replay(torch, cfg, params, sc, log, "plain", forced=routes)
+    wide, _ = replay(torch, cfg, params, sc, log, "widened", forced=routes)
     n = [i for i, x in enumerate(log) if x[0] != "copies"][
         MOE_FAULT_DISPATCHES - 1] + 1
-    bad, _ = replay(torch, cfg, params, sc, log[:n], "fault")
+    bad = {how: replay(torch, cfg, params, sc, log[:n], how,
+                       forced=routes)[0]
+           for how in MOE_FAULTS if shared or how != "no_shared"}
     by_kind, agreement, set_agreement = moe_routing_stats(
-        cfg, log, routes, plain_routes)
+        cfg, log, routes, free_routes)
     check = moe_logit_check(torch, tag, kern, plain, wide, bad)
-    print(json.dumps({"phase": "serve_moe_check", "arch": cfg.name,
+    unforced = int_stats(torch.cat(kern), torch.cat(free))
+    print(json.dumps({"phase": f"{phase}_check", "arch": cfg.name,
                       "layout": layout, **check,
-                      "fault_dispatches": len(bad),
+                      "unforced_max_rel_err": unforced["max"],
+                      "unforced_mean_sq_rel_err": unforced["mean_sq"],
+                      "fault_dispatches": len(bad["fault"]),
                       "routing_agreement": agreement,
                       "routing_set_agreement": set_agreement,
                       "routing": by_kind,
                       "seconds": time.perf_counter() - t0, "card": card}),
           flush=True)
-    del log, routes, plain_routes
+    del log, routes, free_routes
     torch.cuda.empty_cache()
     return launches
 
@@ -4056,7 +4178,7 @@ def moe_phase(torch, card):
     from repro_torch.models.model import init_params
     t0 = time.perf_counter()
     recs = moe_kernel_checks(torch)
-    recs["unit"] = moe_unit_checks(torch)
+    recs["unit"] = moe_unit_checks(torch, MOE_UNIT, "moe_unit")
     cfg = get_config(MOE_ARCH)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(16),
                          device="cuda")
@@ -4069,6 +4191,61 @@ def moe_phase(torch, card):
                       "seconds": time.perf_counter() - t0, "card": card}),
           flush=True)
     return recs, total
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: two-scan programs and mla_moe blocks (deepseek-v2-lite-16b).
+# ---------------------------------------------------------------------------
+
+MLA_MOE_ARCH = "deepseek-v2-lite-16b"
+# moe_ffn on the card in float32 at deepseek's expert count and top k,
+# with its two shared experts, against the CPU port: summation order only.
+# 192 tokens: 24 slots an expert at factor 1.25 (deepseek's), 16 at 0.5
+MLA_MOE_UNIT = dict(B=3, S=64, D=32, E=64, K=6, F=16, shared=2,
+                    factors=(1.25, 0.5),
+                    masks={"none": None, "chunk": (64, 41, 17),
+                           "masked_row": (64, 23, 0)}, tol=1e-6)
+
+
+def mla_moe_phase(torch, card):
+    """Phase 17: the published deepseek-v2-lite-16b (``mla_mlp`` x 1 +
+    ``mla_moe`` x 26: d 2048, 16 MLA heads, r 512, dr 64, 64 experts
+    top 6 and 2 shared, d_ff_expert 1408) at full width and depth in
+    bf16, random weights from a seeded generator on the card, after
+    every earlier phase's weights are released: ``moe_ffn`` on the card
+    against the CPU (``moe_unit_checks``), then phase 3's traffic on
+    the paged latent pool and on the contiguous cache (``serve_moe``).
+    Returns (the unit records, the launches by kernel, summed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import MlaMlpBlock, MlaMoeBlock
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    unit = moe_unit_checks(torch, MLA_MOE_UNIT, "mla_moe_unit")
+    cfg = get_config(MLA_MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(17),
+                         device="cuda")
+    kinds = [type(b) for b in params.blocks]
+    if kinds != [MlaMlpBlock] + [MlaMoeBlock] * 26 or not all(
+            "shared" in b.ffn for b in params.blocks[1:]):
+        fail(f"{cfg.name}: blocks {[k.__name__ for k in kinds]}, want one "
+             "MlaMlpBlock and 26 MlaMoeBlocks with shared experts")
+    print(json.dumps({"phase": "mla_moe_weights", "arch": cfg.name,
+                      "weight_bytes": weight_bytes(params),
+                      "parameters": sum(t.numel()
+                                        for t in params.parameters()),
+                      **memory(torch), "card": card}), flush=True)
+    total = serve_moe(torch, card, cfg, params, paged=True,
+                      phase="serve_mla_moe")
+    for n, v in serve_moe(torch, card, cfg, params, paged=False,
+                          phase="serve_mla_moe").items():
+        total[n] += v
+    del params
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "mla_moe_phase", "launches": total,
+                      "seconds": time.perf_counter() - t0, "card": card}),
+          flush=True)
+    return unit, total
 
 
 def kernel_entry(name, source, replaces, launches, rec, design=None):
@@ -4249,6 +4426,7 @@ def main() -> None:
     vision = vision_phase(torch, card)
     torch.cuda.empty_cache()
     moe_recs, moe_launches = moe_phase(torch, card)
+    _, mla_moe_launches = mla_moe_phase(torch, card)
 
     for rec in (recs[0], recs[2], recs[3]):
         print(json.dumps({
@@ -4353,6 +4531,7 @@ def main() -> None:
              dk64=pair(flash_recs["dk64_dv64"]),
              dh64=dict(pair(moe_recs["flash"]), arch=MOE_ARCH),
              launches_moe=moe_launches["flash_attention_fwd"],
+             launches_mla_moe=mla_moe_launches["flash_attention_fwd"],
              launches_dense_archs=arch_runs("flash_attention_fwd"),
              launches_contiguous=contig_launches["flash_attention_fwd"],
              **{arch: pair(g_recs[arch]["flash"]) for arch in GROUP_HEADS}),
@@ -4378,6 +4557,8 @@ def main() -> None:
              launches_contiguous=contig_launches[
                  "paged_flash_decode_partials"],
              launches_moe=moe_launches["paged_flash_decode_partials"],
+             launches_mla_moe=mla_moe_launches[
+                 "paged_flash_decode_partials"],
              dh64={"arch": MOE_ARCH,
                    "decode": numbers(moe_recs["decode"]),
                    "resumed": numbers(moe_recs["resumed"]),
@@ -4392,6 +4573,7 @@ def main() -> None:
                           mla_recs["mla_P128"], MLA_DESIGN),
              launches_overcommit=oc_launches["mla_paged_decode_partials"],
              launches_contiguous=contig_launches["mla_paged_decode_partials"],
+             launches_mla_moe=mla_moe_launches["mla_paged_decode_partials"],
              pages_per_split=mla_recs["mla_P128"]["shapes"][
                  "pages_per_split"],
              ms_by_split=sweep_ms("fp"), **yardstick(yard["mla"])),

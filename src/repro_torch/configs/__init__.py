@@ -4,16 +4,15 @@ The counterpart of ``repro.configs``.  The port carries the arch files
 of the dense, MLA and MoE paths it serves: qwen2.5-3b (GQA with QKV
 bias), qwen3-8b (GQA with qk_norm), yi-34b (llama-style GQA), stablelm-3b
 (LayerNorm and MHA), granite-moe-1b-a400m (GQA and a top-8 MoE FFN in
-every block) and deepseek-v2-lite-16b (MLA).  The published
-deepseek-v2-lite-16b (an ``mla_mlp`` block, then 26 ``mla_moe`` blocks
-with shared experts) is refused until ROADMAP queue 1 item 12b; the
-reference's other four ids (xlstm-350m, zamba2-7b, chameleon-34b,
-musicgen-medium) follow with their families (item 13).  Every id is the
-reference's but one: ``deepseek-v2-lite-dense``, deepseek-v2-lite's
-widths with its dense MLA block in every layer
-(``configs/deepseek_v2_lite.py::DENSE``), served until item 12b.  It is
-the only port-only id: an ``--arch`` the port accepts is the reference's
-or this one.  ``reduce_config`` shrinks a config to a CPU-testable size
+every block) and deepseek-v2-lite-16b (MLA: an ``mla_mlp`` block, then
+26 ``mla_moe`` blocks with shared experts).  The reference's other four
+ids (xlstm-350m, zamba2-7b, chameleon-34b, musicgen-medium) follow with
+their families (ROADMAP queue 1 item 13).  Every id is the reference's
+but one: ``deepseek-v2-lite-dense``, deepseek-v2-lite's widths with its
+dense MLA block in every layer (``configs/deepseek_v2_lite.py::DENSE``),
+which the MLA serving checks use.  It is the only port-only id: an
+``--arch`` the port accepts is the reference's or this one.
+``reduce_config`` shrinks a config to a CPU-testable size
 while keeping its block structure, exactly as the reference does.
 """
 from __future__ import annotations

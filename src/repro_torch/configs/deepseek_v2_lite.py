@@ -5,13 +5,12 @@
 v 128), 64 routed experts top-6 + 2 shared experts, per-expert
 d_ff=1408, first layer dense (d_ff=10944), vocab 102400.
 
-``CONFIG`` is the published model; its ``mla_moe`` blocks, shared
-experts and two-scan block program are not in the port yet (ROADMAP
-queue 1 item 12b; the routed MoE FFN itself is served in ``attn_moe``
-blocks), so ``init_params`` rejects it.  ``DENSE``
-(``deepseek-v2-lite-dense``) keeps every published width and runs the
-first layer's block, MLA attention with the dense SwiGLU MLP, in all 27
-layers: the configuration the port serves until item 12b.
+``CONFIG`` is the published model: the reference's two-scan block
+program, one ``mla_mlp`` block and then 26 ``mla_moe`` blocks, each with
+the 2 shared experts beside the routed ones.  ``DENSE``
+(``deepseek-v2-lite-dense``, an id of the port's own) keeps every
+published width and runs the first layer's block, MLA attention with the
+dense SwiGLU MLP, in all 27 layers.
 """
 from repro_torch.models.config import ArchConfig
 

@@ -1,7 +1,8 @@
 """Where a serving tick's time goes on the card.
 
 Serves a full-size model (bf16, random weights; qwen2.5-3b, or any
-registered ``--arch``: deepseek-v2-lite-dense for the MLA path, qwen3-8b,
+registered ``--arch``: deepseek-v2-lite-dense for the MLA path,
+granite-moe-1b-a400m and deepseek-v2-lite-16b for the MoE FFN, qwen3-8b,
 yi-34b) with 8 requests of
 700 prompt tokens, then times, without and with ``torch.profiler``:
 
@@ -17,7 +18,10 @@ kernels by name (which route ran), and the device time of the
 flash-decoding combine that follows them (``_combine_page_partials``,
 a few elementwise kernels that no kernel name tells apart): this script
 wraps it in a ``record_function`` range (the model code carries none)
-and sums the kernels launched inside.  Needs one card.
+and sums the kernels launched inside.  The same way, every block's
+attention sublayer and FFN sublayer (MLP or MoE) are wrapped in ranges
+named ATTENTION and FFN in the profiled run only, whose device ms a
+tick are printed side by side.  Needs one card.
 ``--quant`` packs the weights first, in place (as the serving launcher
 does; yi-34b fits on one card only so);
 ``--kv-bits 8`` or ``4`` stores the KV pool as int8 or int4 pages.
@@ -30,6 +34,8 @@ the prefill window then one tick.  Each line names its ``layout``.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --ticks 8
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch deepseek-v2-lite-dense
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch deepseek-v2-lite-16b
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --quant w4a16
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch yi-34b \
       --quant w4a16
@@ -50,12 +56,15 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch.configs import all_archs, get_config
 from repro_torch.launch.serve import QUANT_CHOICES, kv_format, parse_quant
-from repro_torch.models import attention, mla
+from repro_torch.models import attention, blocks, mla
 from repro_torch.models.common import require_device
 from repro_torch.models.model import init_params, quantize_for_serving
 from repro_torch.serve import Request, ServeConfig, ServingEngine
 
 COMBINE = "combine"                 # the combine's profiler range
+ATTENTION = "attention"             # a block's attention sublayer
+FFN = "ffn"                         # a block's MLP or MoE FFN sublayer
+RANGES = (COMBINE, ATTENTION, FFN)
 # name parts of the paged partials kernels: the GQA kernel's chunk route
 # and FMA tile, the MLA kernels, and the GQA decode route
 PARTIALS_KERNELS = ("partials_", "paged_decode_mma")
@@ -71,6 +80,32 @@ def _wrap_combine():
             with record_function(COMBINE):
                 return _fn(*a, **kw)
         mod._combine_page_partials = run
+
+
+def _wrap_sublayers():
+    """Wrap each block kind's attention (``attend``) and FFN
+    (``ffn_out``) in ``record_function`` ranges named ATTENTION and FFN,
+    each where a class defines it (a subclass inherits the wrapped one).
+    Returns a function that restores them."""
+    saved = [(block, name, vars(block)[name])
+             for block in [b.module for b in blocks.BLOCKS.values()]
+             for name in ("attend", "ffn_out") if name in vars(block)]
+    for block, name, fn in saved:
+        if name == "attend":
+            def att(*a, _fn=fn.__func__, **kw):
+                with record_function(ATTENTION):
+                    return _fn(*a, **kw)
+            block.attend = staticmethod(att)
+        else:
+            def ffn(self, *a, _fn=fn, **kw):
+                with record_function(FFN):
+                    return _fn(self, *a, **kw)
+            block.ffn_out = ffn
+
+    def restore():
+        for block, name, fn in saved:
+            setattr(block, name, fn)
+    return restore
 
 
 def _device_us(evt, own: bool = True) -> float:
@@ -104,13 +139,15 @@ def _window(eng, ticks: int, profiled: bool) -> dict:
     # combine's range has a device row of its own (its span on the
     # device's timeline, gaps included)
     dev = [(e.key, _device_us(e), e.count) for e in avgs
-           if e.device_type == DeviceType.CUDA and e.key != COMBINE
+           if e.device_type == DeviceType.CUDA and e.key not in RANGES
            and _device_us(e) > 0]
     busy = sum(r[1] for r in dev) / 1e3
     dev.sort(key=lambda r: -r[1])
     host = {e.key: e.count for e in avgs if e.device_type == DeviceType.CPU}
-    combine = [e for e in avgs
-               if e.key == COMBINE and e.device_type == DeviceType.CPU]
+    spans = {k: [e for e in avgs
+                 if e.key == k and e.device_type == DeviceType.CPU]
+             for k in RANGES}
+    combine = spans[COMBINE]
     return {"wall_ms_per_tick": wall / ticks,
             "device_busy_ms_per_tick": busy / ticks,
             "device_idle_share": 1 - busy / wall,
@@ -125,6 +162,10 @@ def _window(eng, ticks: int, profiled: bool) -> dict:
             "combine_device_ms_per_tick": sum(
                 _device_us(e, own=False) for e in combine) / 1e3 / ticks,
             "combine_calls_per_tick": sum(e.count for e in combine) / ticks,
+            # the blocks' sublayers, every layer of the tick summed
+            **{f"{k}_device_ms_per_tick": sum(
+                _device_us(e, own=False) for e in spans[k]) / 1e3 / ticks
+               for k in (ATTENTION, FFN)},
             # the port's attention kernels by name (their routes)
             "partials_kernels": [{"op": k[:100], "ms_per_tick":
                                   us / 1e3 / ticks, "calls_per_tick":
@@ -173,6 +214,9 @@ def main(argv=None):
                          kv_format=kv_format(args.kv_bits), **base)
         rng = np.random.RandomState(0)
         for profiled in (False, True):
+            # the sublayers' ranges only where the profiler reads them:
+            # the unprofiled walls carry no host range but the combine's
+            restore = _wrap_sublayers() if profiled else (lambda: None)
             eng = ServingEngine(cfg, params, sc, device=dev)
             eng.warmup()
             for i in range(sc.max_batch):
@@ -191,6 +235,7 @@ def main(argv=None):
                                    "ticks")
             out["decode"] = _window(eng, args.ticks, profiled)
             out["decode"]["active_slots"] = len(eng.sched.decode_slots())
+            restore()
             print(json.dumps(out), flush=True)
             del eng
             torch.cuda.empty_cache()

@@ -1,11 +1,12 @@
-"""Residual blocks of the port: ``attn_mlp``, ``mla_mlp`` and ``attn_moe``.
+"""Residual blocks of the port: ``attn_mlp``, ``mla_mlp``, ``attn_moe`` and
+``mla_moe``.
 
-The counterpart of ``repro.models.blocks`` for three block kinds: pre-norm
+The counterpart of ``repro.models.blocks`` for four block kinds: pre-norm
 attention (GQA, or MLA over the latent pool), then a pre-norm SwiGLU (or
-GELU) MLP, or (``attn_moe``) GQA then the MoE FFN of
-:mod:`repro_torch.models.moe`, which masks a chunk's padding from routing
-in mode 'chunk' only.  Every block returns its aux loss (0.0 for an MLP).
-A block is an ``nn.Module`` holding its weights in
+GELU) MLP, or (``attn_moe``, ``mla_moe``) the same attention then the MoE
+FFN of :mod:`repro_torch.models.moe`, which masks a chunk's padding from
+routing in mode 'chunk' only.  Every block returns its aux loss (0.0 for
+an MLP).  A block is an ``nn.Module`` holding its weights in
 the reference's tree (``ln1``, ``attn``, ``ln2``, ``ffn``), so the weight
 bridge maps leaves one to one: raw weights as frozen parameters, and the
 packed weights of a quantized model as :class:`~repro_torch.kernels.ops.
@@ -74,13 +75,16 @@ def attn_mlp_specs(cfg) -> dict:
 class Leaves(nn.Module):
     """One part of a block's tree (``ln1``, ``attn``, ...), read like the
     dict it mirrors (``p["wq"]``, ``p.get("bq")``): tensors as frozen
-    parameters, packed weights as submodules."""
+    parameters, packed weights as submodules, and a nested subtree (the
+    MoE FFN's ``shared``) as a child ``Leaves``."""
 
     def __init__(self, tree: Dict[str, object]):
         super().__init__()
         self._names = tuple(tree)
         for k, v in tree.items():
-            if isinstance(v, PackedWeight):
+            if isinstance(v, dict):
+                self.add_module(k, Leaves(v))
+            elif isinstance(v, PackedWeight):
                 self.add_module(k, v)
             else:
                 self.register_parameter(
@@ -98,9 +102,13 @@ class Leaves(nn.Module):
         return self[k] if k in self._names else default
 
     def tree(self) -> Dict[str, object]:
-        """The leaves: tensors, or PackedWeight modules as they are."""
-        return {k: v if isinstance(v, PackedWeight) else v.data
-                for k, v in ((k, self[k]) for k in self._names)}
+        """The leaves: tensors, PackedWeight modules as they are, and a
+        subtree as its nested dict."""
+        def leaf(v):
+            if isinstance(v, Leaves):
+                return v.tree()
+            return v if isinstance(v, PackedWeight) else v.data
+        return {k: leaf(self[k]) for k in self._names}
 
 
 class AttnMlpBlock(nn.Module):
@@ -173,6 +181,20 @@ class AttnMoeBlock(AttnMlpBlock):
                        token_mask=_chunk_token_mask(h, mode, pos))
 
 
+def mla_moe_specs(cfg) -> dict:
+    return {"ln1": norm_specs(cfg), "attn": mla_specs(cfg),
+            "ln2": norm_specs(cfg), "ffn": moe_specs(cfg)}
+
+
+class MlaMoeBlock(AttnMoeBlock):
+    """One ``mla_moe`` block (the reference's ``_apply_mla_block`` with
+    ``ffn="moe"``): MLA attention over the latent pool, then the MoE FFN
+    with its shared experts; ``leaves`` in the layout of
+    :func:`mla_moe_specs`."""
+
+    attend = staticmethod(apply_mla)
+
+
 class Block(NamedTuple):
     """A block kind: its param specs (cfg), contiguous cache spec (cfg,
     batch, capacity), paged cache spec (cfg, num_pages, page_size, fmt)
@@ -190,4 +212,6 @@ BLOCKS = {
                      MlaMlpBlock),
     "attn_moe": Block(attn_moe_specs, kv_cache_spec, paged_kv_cache_spec,
                       AttnMoeBlock),
+    "mla_moe": Block(mla_moe_specs, mla_cache_spec, paged_mla_cache_spec,
+                     MlaMoeBlock),
 }

@@ -2,8 +2,9 @@
 
 The counterpart of ``repro.models.config`` with torch dtypes.  ``pattern``
 is the block program: ``("scan", kind, count)`` is ``count`` identical
-blocks.  The port runs one scan of ``attn_mlp``, ``mla_mlp`` or
-``attn_moe`` blocks (:mod:`repro_torch.models.model` rejects the rest);
+blocks.  The port runs programs of scans of ``attn_mlp``, ``mla_mlp``,
+``attn_moe`` or ``mla_moe`` blocks (:mod:`repro_torch.models.model`
+rejects ``group`` entries and the recurrent kinds);
 the recurrent fields are kept so that the config files and
 ``reduce_config`` read as in the reference.
 """

@@ -3,15 +3,19 @@
 The counterpart of ``repro.models.model`` for serving.
 The reference scans stacked parameters with ``lax.scan``; the port keeps
 one block module per layer (:data:`~repro_torch.models.blocks.BLOCKS`) in
-an ``nn.ModuleList`` and loops over it.  The port serves a single scan of
-``attn_mlp`` (GQA), ``mla_mlp`` (MLA) or ``attn_moe`` (GQA and the MoE
-FFN) blocks; other block programs raise.  ``forward`` returns the sum of
-the blocks' aux losses, as the reference does.
+an ``nn.ModuleList`` and loops over it.  The block program is a list of
+``scan`` stages, each of one kind: ``attn_mlp`` (GQA), ``mla_mlp``
+(MLA), ``attn_moe`` (GQA and the MoE FFN) or ``mla_moe`` (MLA and the
+MoE FFN, with shared experts where the config has them), as
+deepseek-v2-lite-16b's one ``mla_mlp`` block and then 26 ``mla_moe``
+blocks; ``group`` stages and the recurrent kinds raise.  ``forward``
+returns the sum of every stage's aux losses, as the reference does.
 
 The paged cache keeps the reference's layout, one pool per stage with the
-page axis at 1: leaves ``k``/``v`` (layers, num_pages, page_size, KV, dh)
-for GQA, ``ckv`` (layers, num_pages, page_size, r + dr) for MLA, so later
-swap and wire slices move the same bytes.  A quantized ``kv_format``
+page axis at 1, stacked over the stage's layers: leaves ``k``/``v``
+(layers, num_pages, page_size, KV, dh) for GQA, ``ckv`` (layers,
+num_pages, page_size, r + dr) for MLA, so that swap snapshots and later
+wire slices move the same bytes.  A quantized ``kv_format``
 stores those pools as int8 (int4 packed two a byte) with (layers,
 num_pages, page_size) float32 scale leaves ``k_scale``/``v_scale`` or
 ``ckv_scale``.  The contiguous cache (``init_cache``, the reference's
@@ -51,34 +55,33 @@ from repro_torch.models.common import (ContigView, ParamSpec, dense,
 from repro_torch.models.config import ArchConfig
 
 
-def _block_kind(cfg: ArchConfig) -> str:
-    """Block kind of a single scan of ``attn_mlp``, ``mla_mlp`` or
-    ``attn_moe`` — the block programs the port runs."""
-    kind = cfg.pattern[0][1] if len(cfg.pattern) == 1 and \
-        cfg.pattern[0][0] == "scan" else None
-    if kind in BLOCKS and cfg.input_mode == "tokens":
-        return kind
-    moe = any(e[0] == "scan" and e[1].endswith("_moe") for e in cfg.pattern)
-    later = ("12, MoE: mla_moe blocks and programs of more than one scan "
-             "are its part 12b" if moe else
-             "13, recurrent and embeds-input families")
+def _stages(cfg: ArchConfig) -> List[Tuple[str, int]]:
+    """The block program as (kind, count) stages, one a ``scan`` entry of
+    ``cfg.pattern`` in order: the programs the port runs are token-input
+    scans of ``attn_mlp``, ``mla_mlp``, ``attn_moe`` and ``mla_moe``
+    blocks."""
+    if cfg.input_mode == "tokens" and all(
+            e[0] == "scan" and e[1] in BLOCKS for e in cfg.pattern):
+        return [(e[1], e[2]) for e in cfg.pattern]
     raise ValueError(
         f"{cfg.name}: pattern {cfg.pattern} (input {cfg.input_mode}) is not "
-        "in this slice of the port, which serves one token-input scan of "
-        f"{' or '.join(BLOCKS)} blocks (ROADMAP queue 1 item {later})")
+        "in this slice of the port, which serves token-input scans of "
+        f"{' or '.join(BLOCKS)} blocks (ROADMAP queue 1 item 13, recurrent "
+        "and embeds-input families)")
 
 
-def _n_layers(cfg: ArchConfig) -> int:
-    _block_kind(cfg)
-    return cfg.pattern[0][2]
+def _layer_kinds(cfg: ArchConfig) -> List[str]:
+    """Each layer's block kind, stages in order."""
+    return [kind for kind, count in _stages(cfg) for _ in range(count)]
 
 
 def param_specs(cfg: ArchConfig) -> dict:
+    """The weights' specs; ``blocks`` holds one block a layer, each
+    stage's blocks in order (the reference stacks a stage's layers)."""
     d, vp = cfg.d_model, cfg.padded_vocab
-    block_specs = BLOCKS[_block_kind(cfg)].specs
     return {
         "embed": ParamSpec((vp, d), init="embed", scale=0.02),
-        "blocks": [block_specs(cfg) for _ in range(_n_layers(cfg))],
+        "blocks": [BLOCKS[kind].specs(cfg) for kind in _layer_kinds(cfg)],
         "final_norm": norm_specs(cfg),
         "lm_head": ParamSpec((d, vp), scale=0.02, quantize=True),
     }
@@ -88,19 +91,22 @@ def cache_specs(cfg: ArchConfig, batch: int, capacity: int, *,
                 num_pages: Optional[int] = None,
                 page_size: Optional[int] = None,
                 kv_format: str = "fp") -> list:
-    """Cache spec: one stage of stacked (layers, ...) leaves, contiguous
-    (batch, capacity, ...) or, with ``num_pages`` / ``page_size``, paged
-    pools.  ``kv_format`` picks the page storage format of a paged cache
-    (:mod:`repro_torch.core.pageformat`): "fp" pools of the model's
-    dtype, or "int8"/"int4" int8 pools with float32 row-scale leaves;
-    each leaf keeps its own dtype."""
+    """Cache spec: one dict a stage of its stacked (layers, ...) leaves,
+    contiguous (batch, capacity, ...) or, with ``num_pages`` /
+    ``page_size``, paged pools.  ``kv_format`` picks the page storage
+    format of a paged cache (:mod:`repro_torch.core.pageformat`): "fp"
+    pools of the model's dtype, or "int8"/"int4" int8 pools with float32
+    row-scale leaves; each leaf keeps its own dtype."""
     fmt = get_format(kv_format)
-    n = _n_layers(cfg)
-    block = BLOCKS[_block_kind(cfg)]
-    spec = (block.cache_spec(cfg, batch, capacity) if num_pages is None
-            else block.paged_cache_spec(cfg, num_pages, page_size, fmt))
-    return [{name: ParamSpec((n,) + s.shape, init=s.init, dtype=s.dtype)
-             for name, s in spec.items()}]
+    stages = []
+    for kind, n in _stages(cfg):
+        block = BLOCKS[kind]
+        spec = (block.cache_spec(cfg, batch, capacity) if num_pages is None
+                else block.paged_cache_spec(cfg, num_pages, page_size, fmt))
+        stages.append({name: ParamSpec((n,) + s.shape, init=s.init,
+                                       dtype=s.dtype)
+                       for name, s in spec.items()})
+    return stages
 
 
 def cache_capacity(cfg: ArchConfig, prompt_len: int) -> int:
@@ -119,8 +125,9 @@ class Transformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Parameter(leaves["embed"], requires_grad=False)
-        block = BLOCKS[_block_kind(cfg)].module
-        self.blocks = nn.ModuleList(block(cfg, b) for b in leaves["blocks"])
+        self.blocks = nn.ModuleList(
+            BLOCKS[kind].module(cfg, b)
+            for kind, b in zip(_layer_kinds(cfg), leaves["blocks"]))
         self.final_norm = nn.ParameterDict(
             {k: nn.Parameter(v, requires_grad=False)
              for k, v in leaves["final_norm"].items()})
@@ -161,12 +168,13 @@ def forward(params: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
                          "cacheless 'train' forward comes with ROADMAP "
                          "queue 1 item 16")
     x = embed_lookup(params.embed, inputs)
-    stage = cache[0]
     aux = 0.0   # a host float while no block has experts: no launch
-    for i, block in enumerate(params.blocks):
-        layer = {name: pool[i] for name, pool in stage.items()}
-        x, _, a = block(x, layer, mode, pos, pages, offset, view)
-        aux = aux + a
+    blocks = iter(params.blocks)
+    for stage, (_, n) in zip(cache, _stages(cfg)):
+        for j in range(n):
+            layer = {name: pool[j] for name, pool in stage.items()}
+            x, _, a = next(blocks)(x, layer, mode, pos, pages, offset, view)
+            aux = aux + a
     x = apply_norm(params.final_norm, x, cfg)
     logits = dense(x, params.lm_head, cfg.quant)
     return logits, cache, aux
@@ -245,7 +253,7 @@ def quantize_for_serving(cfg: ArchConfig, params: Transformer, *,
     included.  Returns (the packed model, the count the reference's
     ``quantize_for_serving`` returns for this config): the reference
     stacks a scan stage's layers, so each eligible block weight counts
-    once however many layers the stage has.
+    once a stage however many layers the stage has.
 
     With ``consume`` the raw model gives up its tensors first (each of its
     parameters is left empty, and it must not be used again): a raw leaf
@@ -257,19 +265,20 @@ def quantize_for_serving(cfg: ArchConfig, params: Transformer, *,
     if cfg.quant is None or cfg.quant.mode not in ("int", "wo"):
         raise ValueError("quantize_for_serving needs an int/wo QuantConfig "
                          f"on cfg.quant, got {cfg.quant}")
-    kind = _block_kind(cfg)
-    if kind == "mla_mlp":
+    kinds = {kind for kind, _ in _stages(cfg)}
+    later = []
+    if kinds & {"mla_mlp", "mla_moe"}:
         # MLA decode absorbs W_UK / W_UV into einsums on the raw weights
-        raise NotImplementedError(
-            f"{cfg.name}: packed MLA weights are not in this slice of the "
-            "port (ROADMAP queue 1 item 11)")
-    if kind == "attn_moe":
+        later.append("packed MLA weights are not in this slice of the port "
+                     "(ROADMAP queue 1 item 11)")
+    if kinds & {"attn_moe", "mla_moe"}:
         # the reference keeps the (E, d, f) expert banks raw under its
         # fake-quant emulation, which the port does not have
-        raise NotImplementedError(
-            f"{cfg.name}: a quantized MoE model runs the reference's "
-            "fake-quant emulation of its expert banks, not in the port yet "
-            "(ROADMAP queue 1 item 16)")
+        later.append("a quantized MoE model runs the reference's fake-quant "
+                     "emulation of its expert banks, not in the port yet "
+                     "(ROADMAP queue 1 item 16)")
+    if later:
+        raise NotImplementedError(f"{cfg.name}: " + "; ".join(later))
     specs = param_specs(cfg)
     tree = params.tree()
     if consume:
@@ -277,5 +286,9 @@ def quantize_for_serving(cfg: ArchConfig, params: Transformer, *,
             p.data = torch.empty(0, dtype=p.dtype, device=p.device)
     packed = _pack_tree(specs, tree, cfg.quant)
     blocks = specs.pop("blocks")
-    n = _n_quantizable(specs) + (_n_quantizable(blocks[0]) if blocks else 0)
+    firsts = [0]
+    for _, count in _stages(cfg)[:-1]:
+        firsts.append(firsts[-1] + count)
+    n = _n_quantizable(specs) + sum(_n_quantizable(blocks[i])
+                                    for i in firsts)
     return Transformer(cfg, packed), n

@@ -25,8 +25,14 @@ The dispatch makes no host sync: a dropped or masked assignment writes
 one scratch row past the E * cap slots, which is sliced off, in place of
 the reference's ``mode="drop"`` scatter.  The expert-parallel
 ``_moe_shardmap`` and its ``_ep_layout`` have no use on one card (ROADMAP
-queue 1 item 19); the shared experts of deepseek-v2 come with item 12b,
-and the fake-quant emulation of the expert banks with item 16.
+queue 1 item 19), and the fake-quant emulation of the expert banks comes
+with item 16.
+
+Shared experts (deepseek-v2's ``shared`` subtree, ``n_shared_experts``
+experts of width ``d_ff_expert`` fused into one SwiGLU of their summed
+width) see every token of the dispatch, padding included, as the
+reference's do: three ``dense`` products on the flattened tokens, SiLU in
+float32 cast back, added to the routed output.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.models.common import ParamSpec
+from repro_torch.models.common import ParamSpec, dense
 
 
 def moe_specs(cfg) -> dict:
@@ -180,6 +186,14 @@ def _moe_dense_path(p, xf: torch.Tensor, r: Routing, cfg) -> torch.Tensor:
     return _combine(y_e.reshape(e * r.cap, d), slot, r.keep, r.gates, t, k)
 
 
+def _shared_experts(sh, xf: torch.Tensor, cfg) -> torch.Tensor:
+    """The shared experts' SwiGLU on every token: (T, d) -> (T, d)."""
+    g = dense(xf, sh["w_gate"], cfg.quant)
+    u = dense(xf, sh["w_up"], cfg.quant)
+    h = torch.nn.functional.silu(g.float()).to(xf.dtype) * u
+    return dense(h, sh["w_down"], cfg.quant)
+
+
 def moe_ffn(p, x: torch.Tensor, cfg,
             token_mask: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -188,13 +202,12 @@ def moe_ffn(p, x: torch.Tensor, cfg,
     ``token_mask``: optional (B, S) bool; False positions (chunked-prefill
     padding) are routed to the sentinel expert, so they take no expert
     capacity, and their gates are zeroed.  The capacity counts every
-    token of ``x``, masked or not."""
-    if "shared" in p:
-        raise NotImplementedError(
-            f"{cfg.name}: shared experts are not in this slice of the port "
-            "(ROADMAP queue 1 item 12b)")
+    token of ``x``, masked or not, and the shared experts (where ``p``
+    has a ``shared`` subtree) run on every token too."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     r = route(p, xf, cfg, token_mask)
     y = _moe_dense_path(p, xf, r, cfg)
+    if "shared" in p:
+        y = y + _shared_experts(p["shared"], xf, cfg)
     return y.reshape(b, s, d), r.aux

@@ -4,8 +4,10 @@
 already turned into numpy arrays by the caller (``jax.tree.map(np.asarray,
 params)``), and builds the port's :class:`~repro_torch.models.model.
 Transformer`.  The reference stacks each scan stage's leaves on a leading
-``layers`` axis; the bridge unstacks them into one block per layer.
-:func:`to_jax_numpy` is the inverse, so a round trip is bit-exact.
+``layers`` axis; the bridge unstacks every stage, in order, into one block
+per layer.  A nested subtree of a block (the MoE FFN's ``shared``
+experts) crosses as a nested dict.  :func:`to_jax_numpy` is the inverse,
+restacking each stage, so a round trip is bit-exact.
 
 A packed model (the reference's ``quantize_for_serving`` tree) crosses
 too.  Each ``PackedWeight`` leaf travels as a plain dict ``{"packed",
@@ -30,7 +32,7 @@ import torch
 from repro_torch.kernels.ops import PackedWeight
 from repro_torch.models.common import require_device
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.model import Transformer, _n_layers
+from repro_torch.models.model import Transformer, _stages
 
 
 def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -50,13 +52,15 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _leaf(v, dev, i=None):
-    """A tensor, or a PackedWeight from a packed-leaf dict; ``i`` picks
-    layer ``i`` of a scan-stacked leaf."""
+    """A tensor, a PackedWeight from a packed-leaf dict, or a subtree's
+    dict of them; ``i`` picks layer ``i`` of a scan-stacked leaf."""
     pick = (lambda a: a) if i is None else (lambda a: a[i])
-    if isinstance(v, dict):
+    if isinstance(v, dict) and "packed" in v:      # not a subtree
         return PackedWeight(_to_tensor(pick(v["packed"]), dev),
                             _to_tensor(pick(v["scale"]), dev), v["k"],
                             v["n"], v["w_bits"])
+    if isinstance(v, dict):
+        return {k: _leaf(u, dev, i) for k, u in v.items()}
     return _to_tensor(pick(v), dev)
 
 
@@ -76,10 +80,9 @@ def from_jax_numpy(cfg: ArchConfig, tree: dict, device="cuda") -> Transformer:
     """The port's parameters from a numpy copy of the JAX tree (raw, or
     packed with packed-leaf dicts)."""
     dev = require_device(device)
-    n = _n_layers(cfg)
-    stage = tree["stages"][0]
-    blocks = [{part: {k: _leaf(v, dev, i) for k, v in leaves.items()}
-               for part, leaves in stage.items()} for i in range(n)]
+    blocks = [_leaf(stage, dev, i)
+              for stage, (_, n) in zip(tree["stages"], _stages(cfg))
+              for i in range(n)]
     return Transformer(cfg, {
         "embed": _to_tensor(tree["embed"], dev),
         "blocks": blocks,
@@ -89,21 +92,27 @@ def from_jax_numpy(cfg: ArchConfig, tree: dict, device="cuda") -> Transformer:
     })
 
 
-def to_jax_numpy(cfg: ArchConfig, params: Transformer) -> dict:
-    """The inverse of :func:`from_jax_numpy`: the JAX tree layout, with
-    each block leaf restacked on the leading ``layers`` axis."""
-    t = params.tree()
-    blocks = t["blocks"]
-    def stacked(part, k):
-        layers = [b[part][k] for b in blocks]
-        if isinstance(layers[0], PackedWeight):
-            return _packed_dict(layers)
-        return np.stack([_to_numpy(v) for v in layers])
+def _stacked(layers):
+    """One stage's layers of a leaf (or of a subtree) restacked on the
+    leading ``layers`` axis."""
+    if isinstance(layers[0], dict):
+        return {k: _stacked([b[k] for b in layers]) for k in layers[0]}
+    if isinstance(layers[0], PackedWeight):
+        return _packed_dict(layers)
+    return np.stack([_to_numpy(v) for v in layers])
 
-    stage = {part: {k: stacked(part, k) for k in blocks[0][part]}
-             for part in blocks[0]}
+
+def to_jax_numpy(cfg: ArchConfig, params: Transformer) -> dict:
+    """The inverse of :func:`from_jax_numpy`: the JAX tree layout, one
+    entry of ``stages`` a scan stage, each block leaf restacked on the
+    leading ``layers`` axis."""
+    t = params.tree()
+    blocks, stages = t["blocks"], []
+    for _, n in _stages(cfg):
+        stages.append(_stacked(blocks[:n]))
+        blocks = blocks[n:]
     head = t["lm_head"]
-    return {"embed": _to_numpy(t["embed"]), "stages": [stage],
+    return {"embed": _to_numpy(t["embed"]), "stages": stages,
             "final_norm": {k: _to_numpy(v)
                            for k, v in t["final_norm"].items()},
             "lm_head": (_packed_dict(head) if isinstance(head, PackedWeight)

@@ -133,13 +133,30 @@ def test_paged_cache_keeps_reference_layout():
 
 
 def test_unported_block_program_raises():
-    cfg = ArchConfig(name="m", family="moe", n_layers=2, d_model=32,
-                     n_heads=4, n_kv_heads=2, d_ff=0, vocab_size=64,
-                     n_experts=4, top_k=2,
-                     pattern=(("scan", "attn_mlp", 1),
-                              ("scan", "attn_moe", 1)))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        param_specs(cfg)
+    """A program of two scans (attn_mlp, then attn_moe) was refused before
+    ROADMAP queue 1 item 12b; its specs are now the reference's, stage by
+    stage (each layer's block in the port, each stage stacked in the
+    reference), and the port builds its blocks in the program's order."""
+    from repro.models.model import param_specs as jax_param_specs
+    fields = dict(name="m", family="moe", n_layers=2, d_model=32,
+                  n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=64,
+                  n_experts=4, top_k=2, d_ff_expert=16,
+                  pattern=(("scan", "attn_mlp", 1), ("scan", "attn_moe", 1)))
+    cfg = ArchConfig(**fields)
+    specs = param_specs(cfg)
+    want = jax_param_specs(JaxCfg(**fields))
+    assert len(specs["blocks"]) == 2 and len(want["stages"]) == 2
+    for block, stage in zip(specs["blocks"], want["stages"]):
+        flat = jax.tree.leaves(block)
+        ref = jax.tree.leaves(stage, is_leaf=lambda s: hasattr(s, "init"))
+        assert [(1,) + tuple(s.shape) for s in flat] == \
+            [tuple(s.shape) for s in ref]
+        assert [s.init for s in flat] == [s.init for s in ref]
+    assert set(specs["blocks"][1]["ffn"]) == {"router", "w_gate", "w_up",
+                                               "w_down"}
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert [type(b).__name__ for b in params.blocks] == ["AttnMlpBlock",
+                                                         "AttnMoeBlock"]
 
 
 # -- forward parity: fresh chunk -> resumed chunk -> paged decode -----------

@@ -121,10 +121,38 @@ def test_rank_in_group_matches_reference_with_the_sentinel(n, e):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_shared_experts_raise_naming_item_12b():
-    _, tc = _configs(1.0)
+def test_shared_experts_raise_naming_item_12b(monkeypatch):
+    """A ``shared`` subtree was refused before item 12b; the shared
+    experts now run beside the routed ones, and the unit case with two
+    of them (at factor 1.0) matches the reference's output, aux and
+    routing."""
+    fields = dict(FIELDS, n_shared_experts=2)
+    jc = JaxCfg(**fields, capacity_factor=1.0, dtype=jnp.float32)
+    tc = ArchConfig(**fields, capacity_factor=1.0, dtype=torch.float32)
     p, x = unit_inputs("columns")
-    tp = {k: torch.from_numpy(v) for k, v in p.items()}
-    tp["shared"] = {}
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        moe.moe_ffn(tp, torch.from_numpy(x), tc)
+    rng = np.random.RandomState(1)
+    p["shared"] = {"w_gate": rng.randn(D, 2 * F) / np.sqrt(D),
+                   "w_up": rng.randn(D, 2 * F) / np.sqrt(D),
+                   "w_down": rng.randn(2 * F, D) / np.sqrt(2 * F)}
+    p["shared"] = {k: v.astype(np.float32) for k, v in p["shared"].items()}
+    seen = {}
+    good = ref_moe._moe_dense_path
+
+    def spy(p_, xf, idx_e, idx_c, keep, gate_vals, cap, cfg):
+        seen.update(idx_e=np.asarray(idx_e), keep=np.asarray(keep))
+        return good(p_, xf, idx_e, idx_c, keep, gate_vals, cap, cfg)
+    monkeypatch.setattr(ref_moe, "_moe_dense_path", spy)
+    jp = {k: ({n: jnp.asarray(w) for n, w in v.items()}
+              if isinstance(v, dict) else jnp.asarray(v))
+          for k, v in p.items()}
+    want, want_aux = ref_moe.moe_ffn(jp, jnp.asarray(x), jc)
+    tp = {k: ({n: torch.from_numpy(w) for n, w in v.items()}
+              if isinstance(v, dict) else torch.from_numpy(v))
+          for k, v in p.items()}
+    got, aux = moe.moe_ffn(tp, torch.from_numpy(x), tc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    assert abs(float(aux) - float(want_aux)) <= 1e-6
+    r = moe.route(tp, torch.from_numpy(x).reshape(B * S, D), tc)
+    np.testing.assert_array_equal(r.idx_e.numpy(), seen["idx_e"])
+    np.testing.assert_array_equal(r.keep.numpy(), seen["keep"])

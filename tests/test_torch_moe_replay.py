@@ -3,15 +3,17 @@
 A MoE dispatch's expert capacity comes from its shape, so ``chip_smoke.py``
 holds the MoE engine's logits against a replay of the engine's own
 dispatches (``record_dispatches(..., keep_args=True)`` and ``replay``)
-through a second engine whose attention runs the kernels' plain versions,
-rather than against a teacher-forced forward.  Here the script is loaded
+through a second engine whose attention runs the kernels' plain versions
+on the engine's own routing (``route_forcer``), rather than against a
+teacher-forced forward.  Here the script is loaded
 by path (no card needed) and its pieces run against the port's CPU engine
 on reduced granite-moe-1b-a400m in bf16, at capacity factor 0.5 so that
 chunks drop: on the CPU the engine itself runs the plain versions, so the
-plain replay must give its logits and routing bit for bit (a replay that
-loses a page copy, or keeps a page table the engine later changes, does
-not); the planted fault (gates not renormalised) must land outside the
-bounds of ``moe_logit_check``.  Also: the script's float32 unit case is
+plain replay, forced or on its own routing, must give its logits and
+routing bit for bit (a replay that loses a page copy, or keeps a page
+table the engine later changes, does not); a forced replay that routes
+otherwise than the engine fails; the planted fault (gates not
+renormalised) must land outside the bounds of ``moe_logit_check``.  Also: the script's float32 unit case is
 the CPU tests' (``tests/torch_moe_cases.py``) input for input.
 """
 import importlib.util
@@ -59,13 +61,16 @@ def served():
     reqs = [Request(i, p) for i, p in enumerate(_prompts())]
     smoke.patched(smoke.route_recorder(routes), lambda: eng.run(reqs))
     log = list(log)
-    runs = {how: smoke.replay(torch, cfg, params, sc, log, how)
+    runs = {how: smoke.replay(torch, cfg, params, sc, log, how,
+                              forced=routes)
             for how in ("plain", "widened")}
-    runs["fault"] = smoke.replay(torch, cfg, params, sc, log[:12], "fault")
+    runs["free"] = smoke.replay(torch, cfg, params, sc, log, "plain")
+    runs["fault"] = smoke.replay(torch, cfg, params, sc, log[:12], "fault",
+                                 forced=routes)
     kern = [x[2][2][smoke.live_rows(x[0], x[2][1])] for x in log
             if x[0] != "copies"]
-    return {"cfg": cfg, "eng": eng, "log": log, "routes": routes,
-            "runs": runs, "kern": kern}
+    return {"cfg": cfg, "params": params, "sc": sc, "eng": eng, "log": log,
+            "routes": routes, "runs": runs, "kern": kern}
 
 
 def test_every_dispatch_kind_and_a_shared_prefix_ran(served):
@@ -74,15 +79,16 @@ def test_every_dispatch_kind_and_a_shared_prefix_ran(served):
     assert served["eng"].n_shared_admissions >= 1
 
 
-def test_plain_replay_gives_the_engines_logits_bit_for_bit(served):
-    plain, _ = served["runs"]["plain"]
+@pytest.mark.parametrize("run", ["plain", "free"])
+def test_plain_replay_gives_the_engines_logits_bit_for_bit(served, run):
+    plain, _ = served["runs"][run]
     assert len(plain) == len(served["kern"])
     for got, want in zip(plain, served["kern"]):
         assert torch.equal(got, want)
 
 
 def test_plain_replay_routes_alike_and_chunks_drop(served):
-    _, routes = served["runs"]["plain"]
+    _, routes = served["runs"]["free"]
     by_kind, agreement, set_agreement = smoke.moe_routing_stats(
         served["cfg"], served["log"], served["routes"], routes)
     assert agreement == set_agreement == 1.0
@@ -100,14 +106,27 @@ def test_logit_check_holds_the_engine_and_sees_the_fault(served):
     assert 0 < len(runs["fault"][0]) < len(runs["plain"][0])
     rec = smoke.moe_logit_check(torch, "cpu", served["kern"],
                                 runs["plain"][0], runs["widened"][0],
-                                runs["fault"][0])
+                                {"fault": runs["fault"][0]})
     assert rec["max_rel_err"] == 0.0
     assert max(rec["fault_over_bound"].values()) >= smoke.MOE_FAULT_MARGIN
 
 
+def test_a_forced_replay_that_routes_otherwise_fails(served):
+    """A forced replay whose ``keep`` is not the recorded one (as where
+    its dispatch's capacity differed from the engine's: here the record's
+    bits are flipped) must fail rather than hold the logits on other
+    routing."""
+    forced = list(served["routes"])
+    e, k = forced[0]
+    forced[0] = (e, ~k)
+    with pytest.raises(SystemExit):
+        smoke.replay(torch, served["cfg"], served["params"], served["sc"],
+                     served["log"][:3], "plain", forced=forced)
+
+
 @pytest.mark.parametrize("ties", unit.TIES)
 def test_unit_case_is_the_cpu_tests_input(ties):
-    p, x, cfg = smoke.moe_unit_case(torch, ties, "cpu")
+    p, x, cfg = smoke.moe_unit_case(torch, smoke.MOE_UNIT, ties, 0.5, "cpu")
     want_p, want_x = unit.unit_inputs(ties)
     assert sorted(p) == sorted(want_p)
     for k, v in want_p.items():
@@ -116,4 +135,5 @@ def test_unit_case_is_the_cpu_tests_input(ties):
     assert (cfg.n_experts, cfg.top_k, cfg.d_ff_expert, cfg.d_model) == \
         (unit.E, unit.K, unit.F, unit.D)
     assert cfg.capacity_factor == 0.5 and 0.5 in unit.FACTORS
-    assert smoke.MOE_UNIT_MASKS == unit.MASKS
+    assert smoke.MOE_UNIT["factors"] == (0.5,)
+    assert smoke.MOE_UNIT["masks"] == unit.MASKS

@@ -181,16 +181,56 @@ def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
 
 # -- MLA ----------------------------------------------------------------------
 
+def _prefill_matches_reference(tc):
+    """The float32 port config ``tc`` and its reference twin, on the
+    reference's init bridged: 'prefill' of a (2, 6) prompt into a
+    contiguous cache, logits within 1e-5 and aux within 1e-6."""
+    import dataclasses
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.models import ArchConfig as JaxCfg
+    from repro.models import forward as jax_forward
+    from repro.models import init_cache as jax_init_cache
+    from repro.models import init_params as jax_init_params
+    from repro_torch.models.model import forward, init_cache
+    fields = {f.name: getattr(tc, f.name) for f in dataclasses.fields(tc)
+              if f.name not in ("dtype", "quant")}
+    jc = JaxCfg(**fields, dtype=jnp.float32)
+    tree = jax.tree.map(np.asarray, jax_init_params(jc, jax.random.PRNGKey(0)))
+    toks = np.random.RandomState(0).randint(0, tc.vocab_size, (2, 6))
+    jl, _, jaux = jax_forward(jax.tree.map(jnp.asarray, tree),
+                              jnp.asarray(toks, jnp.int32), jc,
+                              cache=jax_init_cache(jc, 2, 6), mode="prefill")
+    with torch.inference_mode():
+        tl, _, taux = forward(from_jax_numpy(tc, tree, device="cpu"),
+                              torch.from_numpy(toks), tc,
+                              cache=init_cache(tc, 2, 6, device="cpu"),
+                              mode="prefill")
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5, rtol=0)
+    assert abs(float(taux) - float(jaux)) <= 1e-6
+
+
 def test_real_deepseek_v2_lite_raises_naming_the_moe_item():
-    """deepseek-v2-lite-16b's layers 1-26 are mla_moe blocks: MoE is not
-    ported, so the published config is refused by name (the port serves
-    its dense-block variant, deepseek-v2-lite-dense)."""
+    """deepseek-v2-lite-16b (an mla_mlp block, then mla_moe blocks with
+    shared experts) was refused before its MoE blocks were ported; it is
+    now served: reduced, it builds its two stages, its paged cache has
+    the reference's stages and shapes, and its forward matches the
+    reference's."""
+    from repro.configs import get_config as jax_get_config
+    from repro.configs import reduce_config as jax_reduce
+    from repro.models import init_paged_cache as jax_init_paged_cache
     cfg = reduce_config(get_config("deepseek-v2-lite-16b"))
-    with pytest.raises(ValueError,
-                       match=r"mla_moe.*ROADMAP queue 1 item 12, MoE"):
-        init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(ValueError, match=r"ROADMAP queue 1 item 12"):
-        init_paged_cache(cfg, 4, 16, device="cpu")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert [type(b).__name__ for b in params.blocks] == [
+        "MlaMlpBlock", "MlaMoeBlock", "MlaMoeBlock"]
+    assert "shared" in params.blocks[1].ffn
+    got = init_paged_cache(cfg, 4, 16, device="cpu")
+    want = jax_init_paged_cache(jax_reduce(jax_get_config(
+        "deepseek-v2-lite-16b")), 2, 4, 16)
+    assert [{k: tuple(v.shape) for k, v in st.items()} for st in got] == \
+        [{k: tuple(v.shape) for k, v in st.items()} for st in want]
+    _prefill_matches_reference(cfg.with_(dtype=torch.float32))
 
 
 # -- MoE ----------------------------------------------------------------------
@@ -215,9 +255,29 @@ MOE_FIELDS = dict(name="m", family="moe", n_layers=2, d_model=32,
     (("scan", "attn_mlp", 1), ("scan", "attn_moe", 1)),
     (("scan", "attn_moe", 1), ("scan", "attn_moe", 1))])
 def test_mla_moe_and_two_stage_programs_raise_naming_item_12(pattern):
+    """Programs of mla_moe blocks or of two scans were refused before
+    item 12b; each now builds a block a layer, in its stages' order, and
+    its forward matches the reference's."""
     cfg = ArchConfig(**MOE_FIELDS, kv_lora_rank=16, pattern=pattern)
-    with pytest.raises(ValueError, match=r"ROADMAP queue 1 item 12, MoE"):
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    kinds = [kind for _, kind, n in pattern for _ in range(n)]
+    assert [type(b).__name__ for b in params.blocks] == [
+        {"mla_moe": "MlaMoeBlock", "attn_mlp": "AttnMlpBlock",
+         "attn_moe": "AttnMoeBlock"}[k] for k in kinds]
+    _prefill_matches_reference(cfg.with_(dtype=torch.float32))
+
+
+@pytest.mark.parametrize("pattern,mode", [
+    ((("group", (("mamba", 1), ("attn_mlp", 1)), 1),), "tokens"),
+    ((("scan", "mamba", 2),), "tokens"),
+    ((("scan", "mlstm", 1), ("scan", "attn_mlp", 1)), "tokens"),
+    ((("scan", "attn_mlp", 2),), "embeds")])
+def test_group_and_recurrent_programs_raise_naming_item_13(pattern, mode):
+    cfg = ArchConfig(**MOE_FIELDS, pattern=pattern, input_mode=mode)
+    with pytest.raises(ValueError, match=r"ROADMAP queue 1 item 13"):
         init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match=r"ROADMAP queue 1 item 13"):
+        init_paged_cache(cfg, 4, 16, device="cpu")
 
 
 def test_moe_family_config_has_one_attn_moe_scan():
@@ -239,6 +299,22 @@ def test_launcher_serves_granite_reduced_on_cpu():
                        "--max-batch", "2", "--max-new-tokens", "4"])
     lines = out.getvalue().splitlines()
     assert sum(ln.startswith("req ") and "[done" in ln for ln in lines) == 3
+
+
+def test_launcher_serves_deepseek_reduced_on_cpu():
+    """The published deepseek-v2-lite-16b (reduced) through the serving
+    launcher; ``--quant`` refuses it, naming items 11 and 16."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launcher.main(["--arch", "deepseek-v2-lite-16b", "--reduce",
+                       "--device", "cpu", "--requests", "3",
+                       "--max-batch", "2", "--max-new-tokens", "4"])
+    lines = out.getvalue().splitlines()
+    assert sum(ln.startswith("req ") and "[done" in ln for ln in lines) == 3
+    with pytest.raises(NotImplementedError,
+                       match=r"item 11\).*ROADMAP queue 1 item 16"):
+        launcher.main(["--arch", "deepseek-v2-lite-16b", "--reduce",
+                       "--device", "cpu", "--quant", "w4a16"])
 
 
 def test_packed_mla_weights_are_rejected():
