@@ -207,6 +207,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
       kernel names as well as the GQA module's and launch no kernel, and
       a second planted fault leaves the shared experts' output out; each
       fault lands MOE_FAULT_MARGIN outside a bound.
+  18. zamba2-7b (13 groups of 5 Mamba2 blocks and the shared attention
+      block, then 3 Mamba2 blocks: 81 blocks, d 3584, 112 SSM heads of
+      64, MHA at H 32, dh 112) at full width and depth in bf16, after
+      every earlier phase's weights are released (``hybrid_phase``).
+      First the attention kernels at its shape against their plain
+      versions (the flash forward, the paged kernel at the engine's
+      decode split and on a resumed 256-row chunk, each timed beside its
+      bound and SDPA's time; every FLASH_EDGES and PAGED_EDGES case with
+      the planted shift outside), and temperature sampling's
+      frequencies against the softmax on the card.  Then phase 3's
+      traffic, paged and contiguous: a fresh wave launches the flash
+      kernel 13 times (once a shared-block position), a resumed wave or
+      a decode step the paged kernel 13 times; no admission shares a
+      prefix (recurrent state); the dispatches are replayed as in
+      phase 16 (no routing to force), the logits held by
+      ``moe_logit_check`` with the planted fault (a mamba decode step
+      that does not decay its state) outside, and every slot's final
+      conv and SSM state held against the plain replay's.  One
+      overcommitted run (phase 12's arrivals and pool, 40 new tokens)
+      restores every snapshot's pages and state rows bit for bit.  Peak
+      memory, and a paged decode dispatch's and fresh wave's device ms by
+      part (mamba, attention, MLP) are printed.
 
 Phase 2 also holds the MLA path's kernels (phase 2b): the flash forward
 at q/k 192 / v 128 on a fresh 256-token chunk (KV = H = 16), the paged
@@ -2558,7 +2580,7 @@ def watch_swaps(torch, eng, restore_check=True):
     swap-out and swap-in on the host clock, the card synchronized before
     and after; with ``restore_check``, hold every swap-in's restored
     pages against its snapshot bit for bit (``torch.equal``, every
-    leaf)."""
+    leaf), and its recurrent state rows (a mamba block's) alike."""
     import numpy as np
     rec = {"log": [], "mid_prompt": [], "shared": [], "nbytes": [],
            "out_ms": [], "in_ms": [], "restored": 0}
@@ -2602,6 +2624,11 @@ def watch_swaps(torch, eng, restore_check=True):
             if not torch.equal(leaf[:, phys].cpu(), rows):
                 fail(f"swap-in of request {sw.req.rid} did not restore its "
                      "snapshot bit for bit")
+        for leaf, rows in zip(eng._state_leaves(), sw.slot_rows,
+                              strict=True):
+            if not torch.equal(leaf[:, slot].cpu(), rows):
+                fail(f"swap-in of request {sw.req.rid} did not restore its "
+                     "recurrent state rows bit for bit")
         rec["restored"] += 1
     eng.sched.victim, eng._swap_out, eng._swap_in = pick, swap_out, swap_in
     return rec
@@ -3157,7 +3184,8 @@ def contiguous_phase(torch, card):
     return total
 
 
-def contiguous_yardstick(torch, timer, B=8, cap=5376, rows=1056, ps=16):
+def contiguous_yardstick(torch, timer, B=8, cap=5376, rows=1056, ps=16,
+                         H=16, KV=2, dh=128, mla=True):
     """The decode kernels beside one library call that computes what
     kernel and combine compute, at phase 14's decode shape: ``B`` slots
     of a ``cap``-row contiguous cache read through pages of ``ps`` rows
@@ -3165,8 +3193,9 @@ def contiguous_yardstick(torch, timer, B=8, cap=5376, rows=1056, ps=16):
     64-key tile), each slot at its own fill.  The call is
     ``scaled_dot_product_attention`` over each slot's window masked at
     its fill, the query heads of one KV head taken as query rows of one
-    head: GQA at H 16 / KV 2 / dh 128, MLA's absorbed form at dk 576 /
-    dv 512 and one shared latent head.  Each is timed as the kernel
+    head: GQA at H 16 / KV 2 / dh 128 (or ``H``, ``KV``, ``dh``: zamba2's
+    32 / 32 / 112 in phase 18), and with ``mla`` MLA's absorbed form at
+    dk 576 / dv 512 and one shared latent head.  Each is timed as the kernel
     alone, kernel + ``_combine_page_partials`` and the call, and the
     call's output must equal the kernel's combined one within the
     kernel's tolerance.  Never on the main path."""
@@ -3190,7 +3219,6 @@ def contiguous_yardstick(torch, timer, B=8, cap=5376, rows=1056, ps=16):
         return torch.randn(shape, generator=g, device="cuda").to(bf)
 
     # GQA: K / V (B, cap, KV, dh)
-    H, KV, dh = 16, 2, 128
     k, v, q = rand(B, cap, KV, dh), rand(B, cap, KV, dh), rand(B, 1, H, dh)
     (kp, vp), tbl = contig_pages((k, v), view)
     c = page_split(B, 1, H, KV, tbl.shape[1], ps, dh)
@@ -3213,29 +3241,34 @@ def contiguous_yardstick(torch, timer, B=8, cap=5376, rows=1056, ps=16):
         live * KV * dh * 2 * 2 + q.numel() * 2 * 2,
         4 * live * H * dh)
     del k, v, kp, vp
-    # MLA, absorbed: latent rows (B, cap, r + dr), queries q_c / q_rope
-    r, dr = 512, 64
-    pool, q_c, q_r = rand(B, cap, r + dr), rand(B, 1, H, r), rand(B, 1, H, dr)
-    (pp,), tbl = contig_pages((pool,), view)
-    c = decode_split(ps, B, 1, H, tbl.shape[1], r)
-    kern = lambda: pfd.mla_paged_decode_partials(  # noqa: E731
-        pp, q_c, q_r, tbl, pos, r, 192, pages_per_split=c)
-    both = lambda: _combine_page_partials(*kern())  # noqa: E731
-    qs = torch.cat([q_c, q_r], dim=-1)                 # (B, 1, H, 576)
-    ks = pool[:, None, :rows]
-    vs = pool[:, None, :rows, :r]
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qs, ks, vs, attn_mask=mask, scale=192 ** -0.5)
-    err = (both() - sdpa().float()).abs().max()
-    out["mla"] = {"shapes": {"q_c": [B, 1, H, r], "q_rope": [B, 1, H, dr],
-                             "cache": [B, cap, r + dr], "rows": rows,
-                             "page_size": ps, "pages_per_split": c},
-                  "max_abs_err_vs_kernel": err.item(), "tol": MLA_TOL_BF16,
-                  "kernel_ms": timer.ms(kern), "kernel_combine_ms":
-                  timer.ms(both), "library_ms": timer.ms(sdpa)}
-    out["mla"]["bound_ms"], out["mla"]["bound_by"] = bound_ms(
-        live * (r + dr) * 2 + (q_c.numel() + q_r.numel()) * 2
-        + B * H * r * 2, 2 * live * H * (r + dr) + 2 * live * H * r)
+    if mla:
+        # MLA, absorbed: latent rows (B, cap, r + dr), queries q_c / q_rope
+        r, dr = 512, 64
+        H = 16
+        pool, q_c, q_r = (rand(B, cap, r + dr), rand(B, 1, H, r),
+                          rand(B, 1, H, dr))
+        (pp,), tbl = contig_pages((pool,), view)
+        c = decode_split(ps, B, 1, H, tbl.shape[1], r)
+        kern = lambda: pfd.mla_paged_decode_partials(  # noqa: E731
+            pp, q_c, q_r, tbl, pos, r, 192, pages_per_split=c)
+        both = lambda: _combine_page_partials(*kern())  # noqa: E731
+        qs = torch.cat([q_c, q_r], dim=-1)                 # (B, 1, H, 576)
+        ks = pool[:, None, :rows]
+        vs = pool[:, None, :rows, :r]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs, ks, vs, attn_mask=mask, scale=192 ** -0.5)
+        err = (both() - sdpa().float()).abs().max()
+        out["mla"] = {"shapes": {"q_c": [B, 1, H, r],
+                                 "q_rope": [B, 1, H, dr],
+                                 "cache": [B, cap, r + dr], "rows": rows,
+                                 "page_size": ps, "pages_per_split": c},
+                      "max_abs_err_vs_kernel": err.item(),
+                      "tol": MLA_TOL_BF16, "kernel_ms": timer.ms(kern),
+                      "kernel_combine_ms": timer.ms(both),
+                      "library_ms": timer.ms(sdpa)}
+        out["mla"]["bound_ms"], out["mla"]["bound_by"] = bound_ms(
+            live * (r + dr) * 2 + (q_c.numel() + q_r.numel()) * 2
+            + B * H * r * 2, 2 * live * H * (r + dr) + 2 * live * H * r)
     for name, rec in out.items():
         print(json.dumps(dict(phase="contiguous_yardstick", path=name,
                               **rec)), flush=True)
@@ -3311,7 +3344,8 @@ def pack_vision(specs, raw, quant):
 def patched(pairs, fn):
     """``fn()`` with each (module, name, value) of ``pairs`` set, then
     the old values restored."""
-    saved = [(m, a, getattr(m, a)) for m, a, _ in pairs]
+    import inspect
+    saved = [(m, a, inspect.getattr_static(m, a)) for m, a, _ in pairs]
     for m, a, v in pairs:
         setattr(m, a, v)
     try:
@@ -3805,7 +3839,8 @@ def replay_attention(torch, how):
     them by name ('plain' and the faults), or by the plain versions on
     inputs widened to float32 ('widened', the noise floor: nothing rounds
     to bf16 inside attention); 'no_shared' also takes the shared experts'
-    output out of the MoE FFN ('fault' is ``route_forcer``'s)."""
+    output out of the MoE FFN, 'no_decay' the decay out of every mamba
+    decode step (``no_decay_mixer``; 'fault' is ``route_forcer``'s)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.models import attention as attn_mod
@@ -3835,6 +3870,8 @@ def replay_attention(torch, how):
              (attn_mod, "paged_flash_decode_partials", paged),
              (mla_mod, "flash_attention", flash),
              (mla_mod, "mla_paged_decode_partials", mla_partials)]
+    if how == "no_decay":
+        pairs.append(no_decay_mixer(torch))
     if how == "no_shared":
         pairs.append((moe, "_shared_experts",
                       lambda sh, xf, cfg: torch.zeros_like(xf)))
@@ -3852,7 +3889,7 @@ def kernel_launches():
             "mla_paged_decode_partials_quant": pfd.mla_quant_launches}
 
 
-def replay(torch, cfg, params, sc, log, how, forced=None):
+def replay(torch, cfg, params, sc, log, how, forced=None, states=None):
     """Feed the dispatches of ``log`` (``record_dispatches(...,
     keep_args=True)``), copy-on-write page copies included, through a new
     engine in their order, under ``replay_attention(how)``, which must
@@ -3860,7 +3897,9 @@ def replay(torch, cfg, params, sc, log, how, forced=None):
     given, on the kernel run's routing (``route_forcer``; the 'fault'
     replay's gates not renormalised), which it must reproduce: expert and
     ``keep`` of every assignment bit for bit.  Returns each dispatch's
-    live rows' logits (CPU float32) and its routes."""
+    live rows' logits (CPU float32) and its routes; ``states``, a list,
+    receives the engine's recurrent state leaves as the replay leaves
+    them (phase 18)."""
     from repro_torch.serve import ServingEngine
     eng = ServingEngine(cfg, params, sc, device=params.embed.device)
     routes, out = [], []
@@ -3874,6 +3913,8 @@ def replay(torch, cfg, params, sc, log, how, forced=None):
                 logits, eng.cache = getattr(eng, name)(eng.params,
                                                        eng.cache, *args)
                 out.append(logits[live_rows(kind, args)].float().cpu())
+            if states is not None:
+                states.extend(leaf.clone() for leaf in eng._state_leaves())
     pairs = route_recorder(routes) + replay_attention(torch, how)
     if forced is not None:
         pairs += route_forcer(torch, forced, renormalise=how != "fault")
@@ -3982,12 +4023,13 @@ def moe_breakdown(torch, eng, entry, parts=MOE_PARTS):
     the cache as the run left it): the median wall ms of five calls to
     the card's end (host clock), and ``torch.profiler``'s device ms in
     all (busy) and by part: the attention sublayers, the FFN sublayers,
-    and of the MoE FFN each function of ``parts`` (the routing, the
+    the mamba blocks' mixers (phase 18; 0 without), and of the MoE FFN
+    each function of ``parts`` (the routing, the
     dispatch, the experts' GEMMs, the combine and, where the model has
     them, the shared experts)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.launch.profile_serve import (ATTENTION, FFN,
+    from repro_torch.launch.profile_serve import (ATTENTION, FFN, MAMBA,
                                                   _wrap_sublayers)
     from repro_torch.launch.profile_serve import _device_us as device_us
     from repro_torch.models import moe
@@ -4021,7 +4063,7 @@ def moe_breakdown(torch, eng, entry, parts=MOE_PARTS):
         avgs = patched(pairs, prof)
     finally:
         restore()
-    labels = parts + (ATTENTION, FFN)
+    labels = parts + (ATTENTION, FFN, MAMBA)
     span = {e.key: device_us(e, own=False) / 1e3 for e in avgs
             if e.device_type == DeviceType.CPU and e.key in labels}
     busy = sum(device_us(e) for e in avgs
@@ -4034,6 +4076,7 @@ def moe_breakdown(torch, eng, entry, parts=MOE_PARTS):
     return {"kind": kind, "live_slots": int(live_rows(kind, args).sum()),
             "rows": list(args[0].shape), "wall_ms": statistics.median(times),
             "busy_ms": busy, "attention_ms": part_ms[ATTENTION],
+            "mamba_ms": part_ms[MAMBA],
             "ffn_ms": ffn, "ffn_sublayers_ms": part_ms[FFN],
             **{f"ffn_{k.strip('_')}_ms": part_ms[k] for k in parts}}
 
@@ -4248,6 +4291,392 @@ def mla_moe_phase(torch, card):
     return unit, total
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: Mamba2 blocks and the shared attention block (zamba2-7b).
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "zamba2-7b"
+# the attention kernels at zamba2's shape: MHA, H = KV = 32, dh 112
+HYBRID_HEADS = (32, 32, 112)
+# the replays' planted fault: a mamba decode step's state not decayed
+HYBRID_FAULTS = ("no_decay",)
+# the overcommitted run: phase 12's pool and arrivals at 40 new tokens
+# (149 ticks, 2 preemptions in the port's CPU schedule; 64 took 232)
+HYBRID_OVERCOMMIT = dict(OVERCOMMIT, max_new_tokens=40)
+# temperature sampling on the card (``sampling_checks``): N draws of one
+# row of V logits at each T, within SAMPLE_TV_BOUND in total variation of
+# the softmax (twice the largest expected distance, as the CPU test)
+SAMPLE_N, SAMPLE_V, SAMPLE_TV_BOUND = 40_000, 40, 0.035
+SAMPLE_TEMPS = (0.5, 1.0, 2.0)
+
+
+def no_decay_mixer(torch):
+    """(module, name, value): ``MambaBlock.mixer`` with ``A_log`` taken
+    as -inf at decode, so exp(dt * A) = 1: the state is not decayed."""
+    from repro_torch.models import ssm
+    from repro_torch.models.blocks import MambaBlock
+
+    class Over:
+        def __init__(self, p, **over):
+            self.p, self.over = p, over
+
+        def __getitem__(self, k):
+            return self.over[k] if k in self.over else self.p[k]
+
+    def mixer(p, x, cfg, *, cache, mode, pos, offset=None):
+        if mode == "decode":
+            p = Over(p, A_log=torch.full_like(p["A_log"], -math.inf))
+        return ssm.apply_mamba(p, x, cfg, cache=cache, mode=mode, pos=pos,
+                               offset=offset)
+    return (MambaBlock, "mixer", staticmethod(mixer))
+
+
+def paged_library_ms(torch, timer, Sq, H, KV, dh, B=8, ps=16, P=128):
+    """``scaled_dot_product_attention`` over each slot's window of
+    ``check_paged``'s case at (Sq, H, KV, dh) (its seed: the same pool),
+    gathered first and masked at each query's position and the slot's
+    fill: the library call of the same function (kernel + combine) on a
+    contiguous window.  Never on the main path."""
+    import torch.nn.functional as F
+    from repro_torch.models.common import paged_gather
+    kp, vp, q, tbl, qpos, kvv, _ = paged_case(torch, torch.bfloat16, B, Sq,
+                                              H, KV, dh, ps, P, seed=2 + Sq)
+    k, v = (paged_gather(x, tbl).transpose(1, 2) for x in (kp, vp))
+    kpos = torch.arange(k.shape[2], device="cuda")
+    mask = ((kpos[None, None, :] <= qpos[:, :, None])
+            & (kpos[None, None, :] < kvv[:, None, None]))[:, None]
+    qt = q.transpose(1, 2)
+    return timer.ms(lambda: F.scaled_dot_product_attention(
+        qt, k, v, attn_mask=mask, enable_gqa=True))
+
+
+def hybrid_kernel_checks(torch):
+    """The attention kernels at zamba2's shape (H 32 / KV 32, dh 112, G
+    1) against their plain versions: in bf16 the flash forward at a
+    256-row chunk, the paged kernel at the engine's decode split and on
+    a resumed 256-row chunk (timed, each beside its bound and SDPA's
+    time), every FLASH_EDGES and PAGED_EDGES case (the PAGED_SHIFT fault
+    outside PAGED_EDGE_TOL_BF16); in float32 the same three calls on the
+    FMA routes; the decode kernel at phase 14's contiguous decode shape
+    beside SDPA (``contiguous_yardstick``); and an int8 pool at dh 112
+    refused at the wrapper (``quant_width_refused``)."""
+    timer = Timer(torch)
+    H, KV, dh = HYBRID_HEADS
+    recs = {}
+    for tag, dt in (("", torch.bfloat16), ("_f32", torch.float32)):
+        recs["flash" + tag] = check_flash(torch, timer, dt, H=H, KV=KV,
+                                          dh=dh)
+        recs["decode" + tag] = check_paged(torch, timer, dt, Sq=1, H=H,
+                                           KV=KV, dh=dh)
+        recs["resumed" + tag] = check_paged(torch, timer, dt, Sq=256, H=H,
+                                            KV=KV, dh=dh)
+    for key in ("decode", "resumed"):
+        rec = recs[key]
+        rec["library_ms"] = paged_library_ms(
+            torch, timer, rec["shapes"]["q"][1], H, KV, dh)
+        rec["library_call"] = "scaled_dot_product_attention over each " \
+            "slot's gathered window (the kernel's output after the combine)"
+    fl = flash_edge_checks(torch, timer, H=H, KV=KV, dh=dh)
+    edges = paged_edge_checks(torch, timer, H=H, KV=KV, dh=dh)
+    for key, rec in list(recs.items()) + list(fl.items()) + \
+            list(edges.items()):
+        print(json.dumps(dict(phase="kernel_hybrid", arch=HYBRID_ARCH,
+                              case=key, **rec)), flush=True)
+    recs["flash_edges"] = {"cases": len(fl), "max_abs_err": max(
+        r["max_abs_err"] for r in fl.values()), "tol": FLASH_TOL_BF16}
+    recs["edges"] = edge_summary(f"paged_edges {HYBRID_ARCH}", edges)
+    print(json.dumps(recs["edges"]), flush=True)
+    recs["yardstick"] = contiguous_yardstick(torch, timer, H=H, KV=KV,
+                                             dh=dh, mla=False)["gqa"]
+    recs["quant_dh112_refused"] = quant_width_refused(torch, H, KV, dh)
+    del timer
+    torch.cuda.empty_cache()
+    return recs
+
+
+def quant_width_refused(torch, H, KV, dh):
+    """A quantized pool at a head width the quantized kernel is not built
+    for (QUANT_HEAD_DIMS: 128) must raise at the wrapper, on the card,
+    before any launch.  Returns the message."""
+    from repro_torch.kernels import paged_flash_decode as pfd
+    n, ps, b = 8, 16, 2
+    pool = torch.zeros((n, ps, KV, dh), dtype=torch.int8, device="cuda")
+    scale = torch.ones((n, ps), dtype=torch.float32, device="cuda")
+    q = torch.zeros((b, 1, H, dh), dtype=torch.bfloat16, device="cuda")
+    tbl = torch.zeros((b, 4), dtype=torch.int32, device="cuda")
+    pos = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
+    kvv = torch.ones((b,), dtype=torch.int32, device="cuda")
+    before = pfd.quant_launches
+    try:
+        pfd.paged_flash_decode_partials(pool, pool, q, tbl, pos, kvv,
+                                        k_scale=scale, v_scale=scale, bits=8)
+    except ValueError as e:
+        if pfd.quant_launches != before or "not built" not in str(e):
+            fail(f"the quantized call at dh {dh}: {e}, launches "
+                 f"{pfd.quant_launches - before}")
+        return str(e)
+    fail(f"a quantized pool at dh {dh} was not refused at the wrapper")
+
+
+def sampling_checks(torch):
+    """Temperature sampling on the card: the engine's ``_sample`` on
+    SAMPLE_N copies of one row of SAMPLE_V logits (two equal maxima), its
+    generator on the card; the empirical frequencies within
+    SAMPLE_TV_BOUND in total variation of softmax(row / T), at each
+    SAMPLE_TEMPS; T = 0 the lower argmax."""
+    import types
+    import numpy as np
+    from repro_torch.serve import ServingEngine
+    row = np.random.RandomState(0).randn(SAMPLE_V).astype(np.float32) * 1.5
+    row[7] = row[11] = row.max() + 0.3
+    x = torch.from_numpy(row).cuda()
+    out = {}
+    for t in (0.0,) + SAMPLE_TEMPS:
+        eng = types.SimpleNamespace(
+            sc=types.SimpleNamespace(temperature=t),
+            generator=torch.Generator(device="cuda").manual_seed(18))
+        got = ServingEngine._sample(eng, x[None].expand(SAMPLE_N, -1))
+        if t == 0:
+            if not (got == 7).all():
+                fail(f"sampling at T 0 is not the lower argmax: {got[:8]}")
+            continue
+        freq = np.bincount(got, minlength=SAMPLE_V) / SAMPLE_N
+        want = torch.softmax(x / t, -1).cpu().numpy()
+        out[str(t)] = tv = 0.5 * float(np.abs(freq - want).sum())
+        if not tv <= SAMPLE_TV_BOUND:
+            fail(f"sampling at T {t}: TV {tv} from the softmax > "
+                 f"{SAMPLE_TV_BOUND}")
+    print(json.dumps({"phase": "sampling", "draws": SAMPLE_N,
+                      "tv_by_temperature": out, "bound": SAMPLE_TV_BOUND}),
+          flush=True)
+    return out
+
+
+def state_errs(torch, got, ref):
+    """Per (state leaf, slot): the largest |got - ref| over the largest
+    |ref|; the largest of them, and of each leaf kind (conv / ssm, the
+    leaves alternating in the engine's order)."""
+    errs = {"conv": 0.0, "ssm": 0.0}
+    for i, (g, r) in enumerate(zip(got, ref, strict=True)):
+        kind = ("conv", "ssm")[i % 2]
+        for b in range(g.shape[1]):
+            rb = r[:, b].float()
+            e = (g[:, b].float() - rb).abs().max() / rb.abs().max().clamp(
+                min=1e-30)
+            errs[kind] = max(errs[kind], e.item())
+    return errs
+
+
+def serve_hybrid(torch, card, cfg, params, paged):
+    """Phase 18, one layout: phase 3's traffic on the paged pool (phase
+    3's engine) or the contiguous cache (phase 14's), every dispatch
+    recorded (``record_dispatches(..., keep_args=True)``).  Every request
+    completes; a fresh wave launches the flash kernel, a resumed wave and
+    a decode step the paged kernel, once a shared-block position (13)
+    and the other kernel never; no admission shares a prefix (recurrent
+    state).  The dispatches are replayed (``replay``) with the attention
+    kernels' plain versions, on widened inputs (the floor) and, for the
+    first MOE_FAULT_DISPATCHES, with each HYBRID_FAULTS fault; the logits
+    are held by ``moe_logit_check`` (the largest row error and the mean
+    square, each within SERVE_MOE_NOISE_FACTOR of the floor and at least
+    SERVE_REL_TOL_BF16), and every slot's final conv and SSM state
+    against the plain replay's within the same multiple of the widened
+    replay's distance (at least SERVE_REL_TOL_BF16).  Printed: launches
+    by dispatch kind, bytes, peak memory, and on the paged layout the
+    device ms by part (mamba, attention, MLP) of a full decode dispatch
+    and a fresh wave.  Returns the launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_flash_decode as pfd
+    from repro_torch.models.model import flat_leaves
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    import numpy as np
+    layout = "paged" if paged else "contiguous"
+    tag = f"{cfg.name} {layout}"
+    n_attn = sum(e[2] * sum(c for k, c in e[1] if k == "shared_attn")
+                 for e in cfg.pattern if e[0] == "group")
+    sc = (ServeConfig(max_batch=8, max_prompt=256, page_size=16,
+                      max_seq=2048, max_new_tokens=32, record_logits=True)
+          if paged else ServeConfig(paged=False, prefix_sharing=False,
+                                    **CONTIG_SERVE))
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, params, sc, device=params.embed.device)
+    eng.warmup()
+    reqs = [Request(i, p) for i, p in enumerate(smoke_traffic(
+        cfg.vocab_size))]
+    counters = {"flash_attention_fwd": lambda: fa.launches,
+                "paged_flash_decode_partials": lambda: pfd.launches}
+    want = {"fresh": "flash_attention_fwd",
+            "resumed": "paged_flash_decode_partials",
+            "decode": "paged_flash_decode_partials"}
+    log = record_dispatches(eng, counters, keep_args=True)
+    fa.launches = pfd.launches = 0
+    wall, per_decode = drive(torch, eng, reqs, counters)
+    launches = {n: c() for n, c in counters.items()}
+    log = list(log)
+    kinds = {k: 0 for k in want}
+    by_kind = {k: {n: 0 for n in counters} for k in want}
+    for kind, got, _ in log:
+        if kind == "copies":
+            continue
+        kinds[kind] += 1
+        for n, v in got.items():
+            by_kind[kind][n] += v
+        exp = {n: (n_attn if n == want[kind] else 0) for n in counters}
+        if got != exp:
+            fail(f"{tag}: a {kind} dispatch launched {got}, want {exp}")
+    need = ("fresh", "resumed", "decode") if paged else ("fresh", "decode")
+    if min(kinds[k] for k in need) < 1 or (not paged and kinds["resumed"]):
+        fail(f"{tag}: dispatch kinds {kinds}")
+    for r in reqs:
+        if not r.done or r.failed or len(r.out_tokens) != sc.max_new_tokens:
+            fail(f"{tag}: request {r.rid}: done={r.done} failed={r.failed} "
+                 f"tokens={len(r.out_tokens)}")
+        if not all(bool(np.isfinite(x).all()) for x in r.logits):
+            fail(f"{tag}: request {r.rid}: logits are not finite")
+    if eng.n_shared_admissions:
+        fail(f"{tag}: {eng.n_shared_admissions} admissions shared a prefix "
+             "over recurrent state")
+    states = [leaf.clone() for leaf in eng._state_leaves()]
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    rec = {"phase": "serve_hybrid", "arch": cfg.name, "layout": layout,
+           "dtype": str(cfg.dtype), "blocks": cfg.n_blocks(),
+           "attention_positions": n_attn, "requests": len(reqs),
+           "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "stats": eng.stats(), "dispatches": kinds, "launches": launches,
+           "launches_by_dispatch_kind": by_kind,
+           "launches_per_decode_tick": per_decode,
+           "cache_bytes": sum(x.numel() * x.element_size()
+                              for x in flat_leaves(eng.cache)),
+           "pool_bytes": eng.pool_bytes_per_shard(),
+           "state_bytes_per_slot": sum(
+               x.numel() * x.element_size() // x.shape[1]
+               for x in eng._state_leaves()),
+           "weight_bytes": weight_bytes(params), **memory(torch),
+           "card": card}
+    entries = [x for x in log if x[0] != "copies"]
+    full = [x for x in entries if x[0] == "decode"
+            and bool(live_rows("decode", x[2][1]).all())]
+    # the paged layout's only: the contiguous 1024-row wave's would add
+    # ~11 s to the phase for the same split
+    rec["breakdown"] = [moe_breakdown(torch, eng, x, ()) for x in (
+        (full or [x for x in entries if x[0] == "decode"])[0],
+        [x for x in entries if x[0] == "fresh"][0])] if paged else None
+    print(json.dumps(rec), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    kern = [x[2][2][live_rows(x[0], x[2][1]).cpu()] for x in entries]
+    plain_states, wide_states = [], []
+    plain, _ = replay(torch, cfg, params, sc, log, "plain",
+                      states=plain_states)
+    wide, _ = replay(torch, cfg, params, sc, log, "widened",
+                     states=wide_states)
+    n = [i for i, x in enumerate(log) if x[0] != "copies"][
+        MOE_FAULT_DISPATCHES - 1] + 1
+    bad = {how: replay(torch, cfg, params, sc, log[:n], how)[0]
+           for how in HYBRID_FAULTS}
+    check = moe_logit_check(torch, tag, kern, plain, wide, bad)
+    err = state_errs(torch, states, plain_states)
+    floor = state_errs(torch, wide_states, plain_states)
+    tol = {k: max(SERVE_REL_TOL_BF16, SERVE_MOE_NOISE_FACTOR * v)
+           for k, v in floor.items()}
+    for k, v in err.items():
+        if not v <= tol[k]:
+            fail(f"{tag}: the slots' final {k} state reads {v} of its "
+                 f"largest value from the plain replay's (> {tol[k]})")
+    print(json.dumps({"phase": "serve_hybrid_check", "arch": cfg.name,
+                      "layout": layout, **check,
+                      "state_rel_err": err, "state_noise_floor": floor,
+                      "state_rel_tol": tol,
+                      "fault_dispatches": len(bad[HYBRID_FAULTS[0]]),
+                      "seconds": time.perf_counter() - t0, "card": card}),
+          flush=True)
+    del log, states, plain_states, wide_states
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_overcommit(torch, card, cfg, params):
+    """Phase 18's overcommitted run: OVERCOMMIT_ARRIVALS through a
+    HYBRID_OVERCOMMIT pool (reserve_decode_pages=False, swap).  At least one
+    preemption; every swap-in restores its pages and its recurrent state
+    rows bit for bit (``watch_swaps``); every request completes with no
+    fault and every page is free at the end.  Snapshot bytes (the state
+    rows' share among them) and swap times are printed."""
+    from repro_torch.serve import ServeConfig, ServingEngine
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, params, ServeConfig(**HYBRID_OVERCOMMIT),
+                        device=params.embed.device)
+    eng.warmup()
+    rec = watch_swaps(torch, eng)
+    reqs, wall = drive_plan(torch, eng, overcommit_traffic(cfg.vocab_size))
+    st = eng.stats()
+    if not (st["n_preemptions"] >= 1
+            and rec["restored"] == st["n_swap_ins"] == st["n_preemptions"]):
+        fail(f"{cfg.name} overcommit: {st}, {rec['restored']} restores "
+             "checked")
+    bad = [r.rid for r in reqs.values() if not r.done or r.failed
+           or len(r.out_tokens) != HYBRID_OVERCOMMIT["max_new_tokens"]]
+    if bad or eng.iotlb.faults or eng.pages_in_use():
+        fail(f"{cfg.name} overcommit: requests {bad} incomplete, faults "
+             f"{eng.iotlb.faults}, {eng.pages_in_use()} pages in use")
+    out = {"phase": "hybrid_overcommit", "arch": cfg.name, "stats": st,
+           "swap": swap_summary(rec), "log": rec["log"],
+           "snapshot_bytes": rec["nbytes"],
+           "state_bytes_per_snapshot": eng._slot_state_nbytes,
+           "swap_out_ms": rec["out_ms"], "swap_in_ms": rec["in_ms"],
+           "wall_s": wall, "seconds": time.perf_counter() - t0,
+           "card": card}
+    print(json.dumps(out), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_phase(torch, card):
+    """Phase 18: zamba2-7b (13 x (5 ``mamba`` + the ``shared_attn``
+    block) + 3 ``mamba``: d 3584, 112 SSM heads of 64, state 64, MHA at
+    H 32, dh 112) at full width and depth in bf16, random weights from a
+    seeded generator on the card, after every earlier phase's weights are
+    released: the attention kernels at its shape
+    (``hybrid_kernel_checks``), temperature sampling (``sampling_checks``),
+    phase 3's traffic on the paged pool and the contiguous cache
+    (``serve_hybrid``), and one overcommitted run
+    (``hybrid_overcommit``).  Returns (the records, the launches by
+    kernel, summed over both layouts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import AttnMlpBlock, MambaBlock
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    recs = hybrid_kernel_checks(torch)
+    recs["sampling"] = sampling_checks(torch)
+    cfg = get_config(HYBRID_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(18),
+                         device="cuda")
+    if len(params.blocks) != 68 or not all(
+            isinstance(b, MambaBlock) for b in params.blocks) or \
+            type(params.shared) is not AttnMlpBlock:
+        fail(f"{cfg.name}: {len(params.blocks)} own blocks, shared "
+             f"{type(params.shared).__name__}; want 68 MambaBlocks and one "
+             "shared AttnMlpBlock")
+    print(json.dumps({"phase": "hybrid_weights", "arch": cfg.name,
+                      "weight_bytes": weight_bytes(params),
+                      "parameters": sum(t.numel()
+                                        for t in params.parameters()),
+                      **memory(torch), "card": card}), flush=True)
+    total = serve_hybrid(torch, card, cfg, params, paged=True)
+    for n, v in serve_hybrid(torch, card, cfg, params, paged=False).items():
+        total[n] += v
+    recs["overcommit"] = hybrid_overcommit(torch, card, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "hybrid_phase", "launches": total,
+                      "seconds": time.perf_counter() - t0, "card": card}),
+          flush=True)
+    return recs, total
+
+
 def kernel_entry(name, source, replaces, launches, rec, design=None):
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/" + source,
@@ -4333,7 +4762,7 @@ def main() -> None:
     kernels_only = "--kernels-only" in sys.argv[1:]
 
     from repro_torch.kernels import _build
-    t0 = time.perf_counter()
+    t_script = t0 = time.perf_counter()
     ptxas = _build.build_all()
     card = card_line()
     print(card, flush=True)
@@ -4427,6 +4856,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe_recs, moe_launches = moe_phase(torch, card)
     _, mla_moe_launches = mla_moe_phase(torch, card)
+    hyb_recs, hyb_launches = hybrid_phase(torch, card)
 
     for rec in (recs[0], recs[2], recs[3]):
         print(json.dumps({
@@ -4532,6 +4962,9 @@ def main() -> None:
              dh64=dict(pair(moe_recs["flash"]), arch=MOE_ARCH),
              launches_moe=moe_launches["flash_attention_fwd"],
              launches_mla_moe=mla_moe_launches["flash_attention_fwd"],
+             dh112=dict(pair(hyb_recs["flash"]), arch=HYBRID_ARCH,
+                        edges=hyb_recs["flash_edges"]),
+             launches_hybrid=hyb_launches["flash_attention_fwd"],
              launches_dense_archs=arch_runs("flash_attention_fwd"),
              launches_contiguous=contig_launches["flash_attention_fwd"],
              **{arch: pair(g_recs[arch]["flash"]) for arch in GROUP_HEADS}),
@@ -4559,6 +4992,16 @@ def main() -> None:
              launches_moe=moe_launches["paged_flash_decode_partials"],
              launches_mla_moe=mla_moe_launches[
                  "paged_flash_decode_partials"],
+             launches_hybrid=hyb_launches["paged_flash_decode_partials"],
+             dh112={"arch": HYBRID_ARCH,
+                    "decode": dict(numbers(hyb_recs["decode"]),
+                                   library_ms=hyb_recs["decode"][
+                                       "library_ms"]),
+                    "resumed": dict(numbers(hyb_recs["resumed"]),
+                                    library_ms=hyb_recs["resumed"][
+                                        "library_ms"]),
+                    "edges": hyb_recs["edges"],
+                    "yardstick": hyb_recs["yardstick"]},
              dh64={"arch": MOE_ARCH,
                    "decode": numbers(moe_recs["decode"]),
                    "resumed": numbers(moe_recs["resumed"]),
@@ -4626,6 +5069,9 @@ def main() -> None:
              int4=dict(numbers(q_recs["mla_int4_ps16_ceng_bf16"]),
                        ms_by_split=sweep_ms("int4"))),
     ]}
+    print(json.dumps({"phase": "script",
+                      "seconds": time.perf_counter() - t_script}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

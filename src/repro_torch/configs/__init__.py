@@ -1,15 +1,17 @@
 """Config registry: ``--arch <id>`` resolution, input shapes, reduction.
 
 The counterpart of ``repro.configs``.  The port carries the arch files
-of the dense, MLA and MoE paths it serves: qwen2.5-3b (GQA with QKV
-bias), qwen3-8b (GQA with qk_norm), yi-34b (llama-style GQA), stablelm-3b
-(LayerNorm and MHA), granite-moe-1b-a400m (GQA and a top-8 MoE FFN in
-every block) and deepseek-v2-lite-16b (MLA: an ``mla_mlp`` block, then
-26 ``mla_moe`` blocks with shared experts).  The reference's other four
-ids (xlstm-350m, zamba2-7b, chameleon-34b, musicgen-medium) follow with
-their families (ROADMAP queue 1 item 13).  Every id is the reference's
-but one: ``deepseek-v2-lite-dense``, deepseek-v2-lite's widths with its
-dense MLA block in every layer (``configs/deepseek_v2_lite.py::DENSE``),
+of the dense, MLA, MoE and hybrid paths it serves: qwen2.5-3b (GQA with
+QKV bias), qwen3-8b (GQA with qk_norm), yi-34b (llama-style GQA),
+stablelm-3b (LayerNorm and MHA), granite-moe-1b-a400m (GQA and a top-8
+MoE FFN in every block), deepseek-v2-lite-16b (MLA: an ``mla_mlp`` block,
+then 26 ``mla_moe`` blocks with shared experts) and zamba2-7b (13 groups
+of 5 Mamba2 blocks and the shared attention block, then 3 Mamba2
+blocks).  The reference's other three ids (xlstm-350m, chameleon-34b,
+musicgen-medium) follow with their families (ROADMAP queue 1 item 13).
+Every id is the reference's but one: ``deepseek-v2-lite-dense``,
+deepseek-v2-lite's widths with its dense MLA block in every layer
+(``configs/deepseek_v2_lite.py::DENSE``),
 which the MLA serving checks use.  It is the only port-only id: an
 ``--arch`` the port accepts is the reference's or this one.
 ``reduce_config`` shrinks a config to a CPU-testable size
@@ -32,6 +34,7 @@ _MODULES = {
     "granite-moe-1b-a400m": ("granite_moe_1b", "CONFIG"),
     "deepseek-v2-lite-16b": ("deepseek_v2_lite", "CONFIG"),
     "deepseek-v2-lite-dense": ("deepseek_v2_lite", "DENSE"),
+    "zamba2-7b": ("zamba2_7b", "CONFIG"),
 }
 
 

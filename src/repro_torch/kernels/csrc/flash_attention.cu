@@ -385,6 +385,7 @@ int dispatch_dh(int dk, int dv, const void* q, const void* k, const void* v,
                                     kv_valid, s);
   FLASH_CASE(32, 32)
   FLASH_CASE(64, 64)
+  FLASH_CASE(112, 112)
   FLASH_CASE(128, 128)
   FLASH_CASE(192, 128)
 #undef FLASH_CASE

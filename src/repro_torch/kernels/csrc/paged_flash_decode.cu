@@ -70,8 +70,10 @@
 //   each warp takes 16 keys over dk (K^T by plain `ldmatrix`); the mask,
 //   then the row max and sum exchanged across the warps through shared
 //   memory; the weights, rounded to bf16, go to shared memory, and the
-//   context reads them as A fragments and V by `ldmatrix.trans`, each
-//   warp owning dv / 4 output columns (dv / 2 at dv 32: two warps).  A
+//   context reads them as A fragments and V by `ldmatrix.trans`, in
+//   16-column blocks dealt out to the warps in runs (dv / 4 columns a
+//   warp; dv / 2 at dv 32: two warps; at dv 112, seven blocks: 2, 2, 2
+//   and 1, so no column is padded and the fourth warp idles half).  A
 //   split longer than one tile keeps the online softmax across tiles.
 //   At the engine's split a block is one tile, so the tile is
 //   single-buffered and copies overlap products across the blocks an SM
@@ -634,10 +636,13 @@ struct DecodeTile {
   static constexpr int PS = MMA_BK + 8;
   static constexpr int RK = DK * BITS / 8;     // raw bytes a row
   static constexpr int RV = DV * BITS / 8;
-  // warps of the context product, OW output columns each (two n8 tiles
-  // at least, one ldmatrix.x4.trans): four, or DV / 16 at DV 32
-  static constexpr int CW = DV / 16 < 4 ? DV / 16 : 4;
-  static constexpr int OW = DV / CW;
+  // the context product in 16-column blocks (two n8 tiles, one
+  // ldmatrix.x4.trans): NB of them over CW warps, each warp owning BW
+  // consecutive blocks (fewer for the last where CW does not divide NB:
+  // 2, 2, 2, 1 at DV 112); four warps, or DV / 16 at DV 32
+  static constexpr int NB = DV / 16;
+  static constexpr int CW = NB < 4 ? NB : 4;
+  static constexpr int BW = (NB + CW - 1) / CW;
   static constexpr int V = 2 * MMA_BK * KS;
   static constexpr int Q = V + 2 * MMA_BK * VS;
   static constexpr int P = Q + 2 * DEC_BQ * KS;
@@ -662,11 +667,11 @@ paged_decode_mma(const bf16* __restrict__ q,
                  int n_splits, float scale) {
   using L = DecodeTile<BITS, DK, DV>;
   constexpr int BK = MMA_BK, KS = L::KS, VS = L::VS, PS = L::PS;
-  constexpr int RK = L::RK, RV = L::RV, OW = L::OW;
+  constexpr int RK = L::RK, RV = L::RV, BW = L::BW;
   constexpr int KD = DK / 16;           // k-steps of S = Q K^T
-  constexpr int NO = OW / 8;            // a context warp's n8 tiles
+  constexpr int NO = 2 * BW;            // a context warp's n8 tiles
   constexpr int DKC = DK / 8;           // 16-byte chunks a Q row
-  static_assert(DK % 16 == 0 && DV % 32 == 0 && NO % 2 == 0, "head widths");
+  static_assert(DK % 16 == 0 && DV % 16 == 0, "head widths");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vs = reinterpret_cast<bf16*>(smem_raw + L::V);
@@ -864,9 +869,10 @@ paged_decode_mma(const bf16* __restrict__ q,
         unsigned pf[4];
         ldsm_x4(pf, Ps + (lane & 15) * PS + kk * 16 + (lane >> 4) * 8);
         const bf16* Vt = Vs + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                  VS + warp * OW + (lane >> 4) * 8;
+                                  VS + warp * BW * 16 + (lane >> 4) * 8;
 #pragma unroll
-        for (int p = 0; p < NO / 2; ++p) {
+        for (int p = 0; p < BW; ++p) {
+          if (warp * BW + p >= L::NB) break;    // warp-uniform
           unsigned vb[4];
           ldsm_x4_t(vb, Vt + 16 * p);
           mma_bf16(acc[2 * p], pf, vb[0], vb[1]);
@@ -891,11 +897,13 @@ paged_decode_mma(const bf16* __restrict__ q,
       l_out[os] = half ? l1 : l0;
     }
     if (warp < L::CW) {
-      float* dst = acc_out + os * DV + warp * OW + 2 * c4;
+      float* dst = acc_out + os * DV + warp * BW * 16 + 2 * c4;
 #pragma unroll
-      for (int i = 0; i < NO; ++i)
+      for (int i = 0; i < NO; ++i) {
+        if (warp * BW + i / 2 >= L::NB) break;  // warp-uniform
         *reinterpret_cast<float2*>(dst + 8 * i) =
             make_float2(acc[i][2 * half], acc[i][2 * half + 1]);
+      }
     }
   }
 }
@@ -943,6 +951,7 @@ int dispatch_dh(int dk, int dv, const Args& a) {
   if (dk == DK_ && dv == DV_) return pick_route<T, 0, DK_, DV_>(a);
   PICK(32, 32)
   PICK(64, 64)
+  PICK(112, 112)
   PICK(128, 128)
   PICK(192, 128)
 #undef PICK

@@ -28,7 +28,7 @@ NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (dk, dv) pairs the kernel is built for: equal widths, and MLA's naive
 # form (nope 128 + rope 64, v 128)
-HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
+HEAD_DIMS = ((32, 32), (64, 64), (112, 112), (128, 128), (192, 128))
 
 launches = 0          # kernel launches (CUDA path only)
 

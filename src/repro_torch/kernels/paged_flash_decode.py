@@ -75,7 +75,7 @@ NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (dk, dv) pairs the GQA kernel is built for: equal widths, and MLA's
 # expanded window (nope 128 + rope 64, v 128)
-HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
+HEAD_DIMS = ((32, 32), (64, 64), (112, 112), (128, 128), (192, 128))
 # head widths the quantized GQA kernel is built for: qwen2.5-3b's
 QUANT_HEAD_DIMS = (128,)
 # (r, dr) the MLA kernels are built for: deepseek-v2's latent widths

@@ -2,8 +2,9 @@
 
 Serves a full-size model (bf16, random weights; qwen2.5-3b, or any
 registered ``--arch``: deepseek-v2-lite-dense for the MLA path,
-granite-moe-1b-a400m and deepseek-v2-lite-16b for the MoE FFN, qwen3-8b,
-yi-34b) with 8 requests of
+granite-moe-1b-a400m and deepseek-v2-lite-16b for the MoE FFN, zamba2-7b
+for the Mamba2 blocks and the shared attention block, qwen3-8b, yi-34b)
+with 8 requests of
 700 prompt tokens, then times, without and with ``torch.profiler``:
 
   * the prefill ticks (three 256-token chunks per slot: one fresh wave,
@@ -19,9 +20,10 @@ flash-decoding combine that follows them (``_combine_page_partials``,
 a few elementwise kernels that no kernel name tells apart): this script
 wraps it in a ``record_function`` range (the model code carries none)
 and sums the kernels launched inside.  The same way, every block's
-attention sublayer and FFN sublayer (MLP or MoE) are wrapped in ranges
-named ATTENTION and FFN in the profiled run only, whose device ms a
-tick are printed side by side.  Needs one card.
+attention sublayer and FFN sublayer (MLP or MoE), and every mamba
+block's mixer, are wrapped in ranges named ATTENTION, FFN and MAMBA in
+the profiled run only, whose device ms a tick are printed side by side.
+Needs one card.
 ``--quant`` packs the weights first, in place (as the serving launcher
 does; yi-34b fits on one card only so);
 ``--kv-bits 8`` or ``4`` stores the KV pool as int8 or int4 pages.
@@ -41,6 +43,7 @@ the prefill window then one tick.  Each line names its ``layout``.
       --quant w4a16
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --kv-bits 4
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --contiguous
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch zamba2-7b
 """
 from __future__ import annotations
 
@@ -64,7 +67,9 @@ from repro_torch.serve import Request, ServeConfig, ServingEngine
 COMBINE = "combine"                 # the combine's profiler range
 ATTENTION = "attention"             # a block's attention sublayer
 FFN = "ffn"                         # a block's MLP or MoE FFN sublayer
-RANGES = (COMBINE, ATTENTION, FFN)
+MAMBA = "mamba"                     # a mamba block's mixer
+RANGES = (COMBINE, ATTENTION, FFN, MAMBA)
+SUBLAYERS = {"attend": ATTENTION, "ffn_out": FFN, "mixer": MAMBA}
 # name parts of the paged partials kernels: the GQA kernel's chunk route
 # and FMA tile, the MLA kernels, and the GQA decode route
 PARTIALS_KERNELS = ("partials_", "paged_decode_mma")
@@ -83,19 +88,19 @@ def _wrap_combine():
 
 
 def _wrap_sublayers():
-    """Wrap each block kind's attention (``attend``) and FFN
-    (``ffn_out``) in ``record_function`` ranges named ATTENTION and FFN,
-    each where a class defines it (a subclass inherits the wrapped one).
-    Returns a function that restores them."""
+    """Wrap each block kind's attention (``attend``), FFN (``ffn_out``)
+    and Mamba2 mixer (``mixer``) in ``record_function`` ranges named
+    ATTENTION, FFN and MAMBA, each where a class defines it (a subclass
+    inherits the wrapped one).  Returns a function that restores them."""
     saved = [(block, name, vars(block)[name])
-             for block in [b.module for b in blocks.BLOCKS.values()]
-             for name in ("attend", "ffn_out") if name in vars(block)]
+             for block in {b.module for b in blocks.BLOCKS.values()}
+             for name in SUBLAYERS if name in vars(block)]
     for block, name, fn in saved:
-        if name == "attend":
-            def att(*a, _fn=fn.__func__, **kw):
-                with record_function(ATTENTION):
+        if name != "ffn_out":
+            def run(*a, _fn=fn.__func__, _label=SUBLAYERS[name], **kw):
+                with record_function(_label):
                     return _fn(*a, **kw)
-            block.attend = staticmethod(att)
+            setattr(block, name, staticmethod(run))
         else:
             def ffn(self, *a, _fn=fn, **kw):
                 with record_function(FFN):
@@ -165,7 +170,7 @@ def _window(eng, ticks: int, profiled: bool) -> dict:
             # the blocks' sublayers, every layer of the tick summed
             **{f"{k}_device_ms_per_tick": sum(
                 _device_us(e, own=False) for e in spans[k]) / 1e3 / ticks
-               for k in (ATTENTION, FFN)},
+               for k in (ATTENTION, FFN, MAMBA)},
             # the port's attention kernels by name (their routes)
             "partials_kernels": [{"op": k[:100], "ms_per_tick":
                                   us / 1e3 / ticks, "calls_per_tick":

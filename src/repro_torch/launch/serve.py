@@ -7,8 +7,9 @@ per-request TTFT (in engine ticks), the deadline ledger and the engine's
 kernel-launch counts.  Weights are random, from ``init_params`` with a
 seeded ``torch.Generator``; ``--quant`` packs them with
 ``quantize_for_serving`` (w8a8 / w4a8: the integer matmul kernel;
-w4a16 / w2a16: the weight-only one); it raises for a model with MLA or
-MoE blocks (ROADMAP queue 1 items 11 and 16).  ``--kv-bits 8`` or ``4``
+w4a16 / w2a16: the weight-only one); it raises for a model with MLA,
+MoE or Mamba2 blocks (ROADMAP queue 1 items 11, 16 and 13).
+``--kv-bits 8`` or ``4``
 stores the KV pool's pages as int8 or int4 with a float32 scale a row
 (``ServeConfig.kv_format``; the quantized paged kernels).
 
@@ -24,6 +25,9 @@ stores the KV pool's pages as int8 or int4 with a float32 scale a row
       deepseek-v2-lite-16b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-34b \
       --quant w4a16 --ttft-deadline 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+      --reduce --device cpu
 """
 from __future__ import annotations
 

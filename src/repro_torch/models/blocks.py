@@ -1,7 +1,7 @@
-"""Residual blocks of the port: ``attn_mlp``, ``mla_mlp``, ``attn_moe`` and
-``mla_moe``.
+"""Residual blocks of the port: ``attn_mlp``, ``mla_mlp``, ``attn_moe``,
+``mla_moe``, ``mamba`` and ``shared_attn``.
 
-The counterpart of ``repro.models.blocks`` for four block kinds: pre-norm
+The counterpart of ``repro.models.blocks`` for six block kinds: pre-norm
 attention (GQA, or MLA over the latent pool), then a pre-norm SwiGLU (or
 GELU) MLP, or (``attn_moe``, ``mla_moe``) the same attention then the MoE
 FFN of :mod:`repro_torch.models.moe`, which masks a chunk's padding from
@@ -11,11 +11,16 @@ the reference's tree (``ln1``, ``attn``, ``ln2``, ``ffn``), so the weight
 bridge maps leaves one to one: raw weights as frozen parameters, and the
 packed weights of a quantized model as :class:`~repro_torch.kernels.ops.
 PackedWeight` submodules.  :data:`BLOCKS` maps a block kind to its specs,
-its contiguous and paged cache specs and its module.
+its contiguous and paged cache specs and its module.  A ``mamba`` block
+(pre-norm Mamba2 mixer, :mod:`repro_torch.models.ssm`, and the residual)
+keeps a per-slot recurrent state in both layouts: its paged cache spec is
+None, so paging bypasses it.  ``shared_attn`` is the ``attn_mlp`` block
+whose weights the model holds once (zamba2's shared attention block,
+:mod:`repro_torch.models.model`).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -29,6 +34,7 @@ from repro_torch.models.common import (ParamSpec, chunk_lengths,
                                        chunk_valid_mask, dense, layer_norm,
                                        rms_norm)
 from repro_torch.models.moe import moe_ffn, moe_specs
+from repro_torch.models.ssm import apply_mamba, mamba_cache_spec, mamba_specs
 
 
 def norm_specs(cfg) -> dict:
@@ -195,13 +201,43 @@ class MlaMoeBlock(AttnMoeBlock):
     attend = staticmethod(apply_mla)
 
 
+def mamba_block_specs(cfg) -> dict:
+    return {"ln": norm_specs(cfg), "mamba": mamba_specs(cfg)}
+
+
+class MambaBlock(nn.Module):
+    """One ``mamba`` block (the reference's ``_apply_mamba_block``): the
+    Mamba2 mixer on the normed stream, added to it; ``leaves`` in the
+    layout of :func:`mamba_block_specs`.  Its cache is the slot's
+    recurrent state ({"conv", "ssm"}), whatever the layout: ``pages``
+    and ``view`` are not read."""
+
+    mixer = staticmethod(apply_mamba)
+
+    def __init__(self, cfg, leaves: Dict[str, Dict[str, torch.Tensor]]):
+        super().__init__()
+        self.cfg = cfg
+        self.ln = Leaves(leaves["ln"])
+        self.mamba = Leaves(leaves["mamba"])
+
+    def tree(self) -> Dict[str, Dict[str, object]]:
+        return {"ln": self.ln.tree(), "mamba": self.mamba.tree()}
+
+    def forward(self, x, cache, mode, pos, pages, offset, view):
+        y, cache = self.mixer(self.mamba, apply_norm(self.ln, x, self.cfg),
+                              self.cfg, cache=cache, mode=mode, pos=pos,
+                              offset=offset)
+        return x + y, cache, 0.0
+
+
 class Block(NamedTuple):
     """A block kind: its param specs (cfg), contiguous cache spec (cfg,
-    batch, capacity), paged cache spec (cfg, num_pages, page_size, fmt)
-    and module."""
+    batch, capacity), paged cache spec (cfg, num_pages, page_size, fmt;
+    None: a per-slot state, the contiguous spec in both layouts) and
+    module."""
     specs: Callable
     cache_spec: Callable
-    paged_cache_spec: Callable
+    paged_cache_spec: Optional[Callable]
     module: type
 
 
@@ -214,4 +250,10 @@ BLOCKS = {
                       AttnMoeBlock),
     "mla_moe": Block(mla_moe_specs, mla_cache_spec, paged_mla_cache_spec,
                      MlaMoeBlock),
+    "mamba": Block(mamba_block_specs,
+                   lambda cfg, batch, cap: mamba_cache_spec(cfg, batch),
+                   None, MambaBlock),
 }
+# zamba2's shared attention block: the attn_mlp block, its weights held
+# once by the model
+BLOCKS["shared_attn"] = BLOCKS["attn_mlp"]

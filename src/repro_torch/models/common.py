@@ -50,6 +50,8 @@ class ParamSpec:
     scale: Optional[float] = None  # stddev override (default 1/sqrt(fan_in))
     dtype: Optional[torch.dtype] = None  # override model dtype (norms: f32)
     quantize: bool = False         # eligible for sub-byte packing (serving)
+    pooled: bool = False           # a paged cache's page pool (axis 1 =
+    #                                pages), not a per-slot state leaf
 
     def std(self) -> float:
         if self.init == "embed":

@@ -2,11 +2,12 @@
 
 The counterpart of ``repro.models.config`` with torch dtypes.  ``pattern``
 is the block program: ``("scan", kind, count)`` is ``count`` identical
-blocks.  The port runs programs of scans of ``attn_mlp``, ``mla_mlp``,
-``attn_moe`` or ``mla_moe`` blocks (:mod:`repro_torch.models.model`
-rejects ``group`` entries and the recurrent kinds);
-the recurrent fields are kept so that the config files and
-``reduce_config`` read as in the reference.
+blocks, ``("group", ((kind, count), ...), repeats)`` the inner blocks in
+order, ``repeats`` times.  The port runs programs of ``attn_mlp``,
+``mla_mlp``, ``attn_moe``, ``mla_moe``, ``mamba`` and ``shared_attn``
+blocks (:mod:`repro_torch.models.model` rejects the xLSTM kinds); the
+fields of the families it does not serve yet are kept so that the config
+files and ``reduce_config`` read as in the reference.
 """
 from __future__ import annotations
 

@@ -31,8 +31,9 @@ class ServeConfig:
     max_batch: int = 4
     max_prompt: int = 64            # prefill CHUNK budget per dispatch
     max_new_tokens: int = 32
-    temperature: float = 0.0        # 0 = greedy (the only mode served)
+    temperature: float = 0.0        # 0 = greedy
     eos_id: int = -1                # -1 = never
+    seed: int = 0                   # the sampling generator's seed
     strict_iotlb: bool = True       # False: record fault, reject admission
     paged: bool = True              # page the KV cache (False: contiguous)
     page_size: int = 16             # cache rows per page
@@ -89,8 +90,6 @@ class ServeConfig:
                 f"least the post-prompt token), got {self.max_new_tokens}")
         if self.temperature < 0:
             bad("temperature", f"must be >= 0, got {self.temperature}")
-        if self.temperature > 0:
-            later("temperature", self.temperature, 7, "temperature sampling")
         if self.preemption not in ("swap", "terminate"):
             bad("preemption", "must be 'swap' or 'terminate', "
                 f"got {self.preemption!r}")

@@ -9,7 +9,10 @@ card.  Three layers, one owner per concern, as in the reference:
     copy-on-write, growth reservations, the 32-entry IOTLB;
   * this file — EXECUTION: owns the weights, the paged KV pool and the
     two steps (chunked prefill, decode), stages each tick's inputs on the
-    host in numpy, applies page copies, and samples greedily.
+    host in numpy, applies page copies, and samples: greedily, or at
+    ``ServeConfig.temperature`` > 0 from the softmax of the logits over
+    the temperature, with one ``torch.Generator`` an engine seeded from
+    ``ServeConfig.seed``.
 
 Session surface: ``submit(req)`` returns a :class:`RequestHandle` at once
 (the request waits on the scheduler's pending queue); ``tick()`` advances
@@ -50,9 +53,17 @@ table width (pages of 16 rows where ``page_size`` does not divide the
 capacity).  No overcommit, preemption, swap, prefix sharing or
 copy-on-write, as in the reference.
 
+Recurrent state (mamba blocks): a cache leaf is a page POOL (page axis
+at 1) or a PER-SLOT state leaf (batch axis at 1), ``_pooled`` flags them
+in the reference's leaf order.  A swap snapshot holds a slot's pages
+(``pool_rows``) and its state rows (``slot_rows``), restored bit for bit
+into the new slot; a slot's state counts toward ``swap_budget_bytes``;
+copy-on-write copies touch pools only; and prefix sharing stays off
+unless every leaf is pooled (a sharer cannot inherit recurrent state), as
+in the reference.  The contiguous cache carries the same state leaves.
+
 Not in this slice (ServeConfig rejects them): swap spill and the tiered
-pool, oversized contexts, speculative decoding, decode twins,
-temperature sampling.
+pool, oversized contexts, speculative decoding, decode twins.
 """
 from __future__ import annotations
 
@@ -68,7 +79,8 @@ from repro_torch.kernels import paged_flash_decode as _paged
 from repro_torch.models.common import ContigView, require_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import (Transformer, cache_capacity,
-                                      init_cache, init_paged_cache)
+                                      cache_specs, flat_leaves, init_cache,
+                                      init_paged_cache)
 from repro_torch.serve.allocator import PageAllocator
 from repro_torch.serve.config import Request, ServeConfig
 from repro_torch.serve.scheduler import Scheduler, SwappedRequest
@@ -155,7 +167,7 @@ class ServingEngine:
                               else bsz * self.pages_per_slot)
             self.cache = init_paged_cache(cfg, self.num_pages, ps,
                                           kv_format=serve_cfg.kv_format,
-                                          device=self.device)
+                                          batch=bsz, device=self.device)
             self._decode = make_paged_decode_step(cfg)
             self._prefill = make_paged_chunked_prefill_step(cfg)
             self.alloc = PageAllocator(self.num_pages, ps, bsz,
@@ -177,9 +189,19 @@ class ServingEngine:
                 self._plain_iotlb.program(Window(
                     name=f"slot{i}", virt_base=i * rows, size=rows,
                     phys_base=i * rows, readable=True, writable=True))
+        # which leaves are page pools (axis 1 = pages; in the contiguous
+        # layout, the KV caches that would be) and which per-slot state
+        # (axis 1 = batch): drives swap and COW.  The two layouts list
+        # their leaves in the same order
+        self._pooled = [spec.pooled for spec in flat_leaves(cache_specs(
+            cfg, bsz, 0, num_pages=1, page_size=ps,
+            kv_format=serve_cfg.kv_format))]
         self.sched = Scheduler(bsz, serve_cfg.max_prompt)
         self.positions = np.zeros((bsz,), np.int32)
         self.last_token = np.zeros((bsz,), np.int32)
+        # the sampling generator (temperature > 0), on the engine's device
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(serve_cfg.seed)
         self.completed: List[Request] = []
         self.peak_active = 0        # high-water concurrency
         self.peak_pages = 0         # high-water pool pages in use
@@ -194,14 +216,21 @@ class ServingEngine:
         self._prefilled_since_step = False   # one prefill dispatch per tick
         self.tick_no = 0            # the serving clock (deadline ledger)
         self._closed = False        # set by drain(): no further submits
-        # host bytes one swapped page occupies, for the swap budget: every
-        # pool leaf, scales included.  No family the port serves keeps
-        # per-slot state, so a snapshot holds pages only.
-        self._page_nbytes = (sum(leaf.numel() * leaf.element_size()
-                                 // leaf.shape[1]
-                                 for leaf in self._pool_leaves())
-                             if serve_cfg.paged else 0)
-        self._slot_state_nbytes = 0
+        # prefix sharing needs every cache leaf paged: recurrent state
+        # cannot be inherited from a sharer
+        self._can_share = serve_cfg.paged and serve_cfg.prefix_sharing \
+            and all(self._pooled) and len(self._pooled) > 0
+        # host bytes one swapped slot occupies, for the swap budget: every
+        # pool leaf (scales included) per mapped page, every state leaf
+        # per slot (axis 1 is pages resp. batch)
+        self._page_nbytes = self._slot_state_nbytes = 0
+        if serve_cfg.paged:
+            self._page_nbytes = sum(leaf.numel() * leaf.element_size()
+                                    // leaf.shape[1]
+                                    for leaf in self._pool_leaves())
+            self._slot_state_nbytes = sum(
+                leaf.numel() * leaf.element_size() // leaf.shape[1]
+                for leaf in self._state_leaves())
 
     # -- views ----------------------------------------------------------------
     @property
@@ -213,15 +242,25 @@ class ServingEngine:
 
     def _pool_leaves(self) -> List[torch.Tensor]:
         """Every pool leaf in the reference's flattening order (stages in
-        order, keys sorted), the order of a snapshot's ``pool_rows``."""
-        return [stage[k] for stage in self.cache for k in sorted(stage)]
+        order, keys sorted at every level), the order of a snapshot's
+        ``pool_rows``."""
+        return [leaf for leaf, pooled in zip(flat_leaves(self.cache),
+                                             self._pooled) if pooled]
+
+    def _state_leaves(self) -> List[torch.Tensor]:
+        """Every per-slot state leaf (layers, B, ...), in the same order:
+        the order of a snapshot's ``slot_rows``."""
+        return [leaf for leaf, pooled in zip(flat_leaves(self.cache),
+                                             self._pooled) if not pooled]
 
     def pool_bytes_per_shard(self) -> int:
         """Device bytes of page-pool state one pool shard holds: every
-        cache leaf, scales included.  On one device, the whole pool; for
-        the contiguous layout, the whole cache."""
-        return sum(leaf.numel() * leaf.element_size()
-                   for stage in self.cache for leaf in stage.values())
+        pool leaf, scales included (on one device, the whole pool; per-slot
+        state is not pool state, as in the reference); for the contiguous
+        layout, the whole cache."""
+        leaves = (self._pool_leaves() if self.sc.paged
+                  else flat_leaves(self.cache))
+        return sum(leaf.numel() * leaf.element_size() for leaf in leaves)
 
     def stats(self) -> dict:
         return {"ticks": self.tick_no, "peak_active": self.peak_active,
@@ -304,7 +343,7 @@ class ServingEngine:
             # the pages the swap queue waits for
             return _DEFER, no_share
         share = (self.sched.shared_prefix(req.prompt, self.sc.page_size)
-                 if self.sc.prefix_sharing else no_share)
+                 if self._can_share else no_share)
         demand -= share[1] // self.sc.page_size    # shared pages are free
         if demand > self.alloc.reserved_free():
             return _DEFER, no_share
@@ -494,9 +533,17 @@ class ServingEngine:
                 self._finish(slot)
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
-        """Greedy: argmax over the PADDED vocab in float32 (lowest index
-        on ties), as the reference."""
-        return logits.float().argmax(dim=-1).cpu().numpy()
+        """One token a row over the PADDED vocab, as the reference: at
+        temperature 0 the float32 argmax (lowest index on ties), else a
+        draw from softmax(logits / T) with the engine's generator (the
+        reference's ``jax.random.categorical``: the same distribution,
+        not the same bits)."""
+        t = self.sc.temperature
+        if t <= 0:
+            return logits.float().argmax(dim=-1).cpu().numpy()
+        probs = torch.softmax(logits.float() / t, dim=-1)
+        return torch.multinomial(probs, 1, generator=self.generator)[
+            :, 0].cpu().numpy()
 
     def _finish(self, slot: int):
         req = self.sched.slots[slot].req
@@ -509,23 +556,22 @@ class ServingEngine:
 
     def _apply_copies(self, copies: List[Tuple[int, int]]) -> None:
         """Apply allocator COW copies (src phys -> dst phys) to every pool
-        leaf (layers, pages, ...), in place."""
+        leaf (layers, pages, ...), in place; state leaves are per slot."""
         if not copies:
             return
         src = torch.tensor([c[0] for c in copies], device=self.device)
         dst = torch.tensor([c[1] for c in copies], device=self.device)
-        for stage in self.cache:
-            for leaf in stage.values():
-                leaf[:, dst] = leaf[:, src]
+        for leaf in self._pool_leaves():
+            leaf[:, dst] = leaf[:, src]
         self.n_cow_copies += len(copies)
 
     # -- device <-> host page movement --------------------------------------
     def _swap_out(self, slot: int) -> None:
-        """Preempt ``slot``: copy its pages to host tensors, release them,
-        and park the request on the swap queue.  The copy to the host is
-        synchronous, so it has landed before ``release_slot`` hands the
-        pages to the next writer; a page the victim shares keeps its
-        other references and bytes."""
+        """Preempt ``slot``: copy its pages and its recurrent state rows to
+        host tensors, release the pages, and park the request on the swap
+        queue.  The copy to the host is synchronous, so it has landed
+        before ``release_slot`` hands the pages to the next writer; a page
+        the victim shares keeps its other references and bytes."""
         meta = self.sched.slots[slot]
         req = meta.req
         n_logical = self.alloc.logical_count(slot)
@@ -533,22 +579,25 @@ class ServingEngine:
             self.alloc.page_table[slot, :n_logical].astype(np.int64)
         ).to(self.device)
         pool_rows = [leaf[:, phys].cpu() for leaf in self._pool_leaves()]
+        slot_rows = [leaf[:, slot].cpu() for leaf in self._state_leaves()]
         self.sched.swapped.append(SwappedRequest(
             req=req, prefill_done=meta.prefill_done, order=meta.order,
             pos=int(self.positions[slot]),
             last_token=int(self.last_token[slot]),
             n_pages=n_logical, n_max=self._max_pages(req),
             growth_due=int(self.alloc.growth_due[slot]),
-            pool_rows=pool_rows, slot_rows=[],
-            nbytes=sum(t.numel() * t.element_size() for t in pool_rows)))
+            pool_rows=pool_rows, slot_rows=slot_rows,
+            nbytes=sum(t.numel() * t.element_size()
+                       for t in pool_rows + slot_rows)))
         self.alloc.release_slot(slot)
         self.sched.release(slot)
         req.preempts += 1
         self.n_preemptions += 1
 
     def _swap_in(self, slot: int, sw: SwappedRequest) -> None:
-        """Re-admit a swapped request: fresh private pages, its bytes
-        back, and its admission order, position and last token."""
+        """Re-admit a swapped request: fresh private pages, its bytes and
+        its state rows back (into the new slot), and its admission order,
+        position and last token."""
         for j in range(sw.n_pages):
             if not self.alloc.alloc(slot, j):
                 raise RuntimeError("swap-in pages were vetted in "
@@ -556,8 +605,12 @@ class ServingEngine:
         phys = torch.from_numpy(
             self.alloc.page_table[slot, :sw.n_pages].astype(np.int64)
         ).to(self.device)
-        for leaf, rows in zip(self._pool_leaves(), sw.pool_rows):
+        for leaf, rows in zip(self._pool_leaves(), sw.pool_rows,
+                              strict=True):
             leaf[:, phys] = rows.to(self.device)
+        for leaf, rows in zip(self._state_leaves(), sw.slot_rows,
+                              strict=True):
+            leaf[:, slot] = rows.to(self.device)
         if self.sc.reserve_decode_pages:
             self.alloc.growth_due[slot] = sw.growth_due
         self.positions[slot] = sw.pos

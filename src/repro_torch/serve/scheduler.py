@@ -45,8 +45,9 @@ class SwappedRequest:
     """A preempted request parked in host memory until re-admission.
     ``pool_rows`` holds one host tensor per pool leaf, in the reference's
     leaf order (stages in order, keys sorted), each (layers, n_pages,
-    page_size, ...): the request's pages byte for byte.  The port serves
-    no per-slot state (``slot_rows`` stays empty) and has no spill tier
+    page_size, ...): the request's pages byte for byte; ``slot_rows``
+    one per per-slot state leaf (a mamba block's conv and SSM state), each
+    (layers, ...): the slot's row.  The port has no spill tier
     (``spill_step`` stays None)."""
     req: Request
     prefill_done: int

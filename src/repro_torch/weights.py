@@ -5,9 +5,13 @@ already turned into numpy arrays by the caller (``jax.tree.map(np.asarray,
 params)``), and builds the port's :class:`~repro_torch.models.model.
 Transformer`.  The reference stacks each scan stage's leaves on a leading
 ``layers`` axis; the bridge unstacks every stage, in order, into one block
-per layer.  A nested subtree of a block (the MoE FFN's ``shared``
-experts) crosses as a nested dict.  :func:`to_jax_numpy` is the inverse,
-restacking each stage, so a round trip is bit-exact.
+per layer.  A ``group`` stage's ``b<j>`` subtrees are stacked over its
+repeats; they unstack into the blocks of each repeat in turn, as
+``forward`` runs them, and the shared attention block (the reference's
+top-level ``shared``) crosses once, as ``Transformer.shared``.  A nested
+subtree of a block (the MoE FFN's ``shared`` experts) crosses as a nested
+dict.  :func:`to_jax_numpy` is the inverse, restacking each stage, so a
+round trip is bit-exact.
 
 A packed model (the reference's ``quantize_for_serving`` tree) crosses
 too.  Each ``PackedWeight`` leaf travels as a plain dict ``{"packed",
@@ -80,16 +84,20 @@ def from_jax_numpy(cfg: ArchConfig, tree: dict, device="cuda") -> Transformer:
     """The port's parameters from a numpy copy of the JAX tree (raw, or
     packed with packed-leaf dicts)."""
     dev = require_device(device)
-    blocks = [_leaf(stage, dev, i)
-              for stage, (_, n) in zip(tree["stages"], _stages(cfg))
-              for i in range(n)]
-    return Transformer(cfg, {
-        "embed": _to_tensor(tree["embed"], dev),
-        "blocks": blocks,
-        "final_norm": {k: _to_tensor(v, dev)
-                       for k, v in tree["final_norm"].items()},
-        "lm_head": _leaf(tree["lm_head"], dev),
-    })
+    blocks = []
+    for stage, st in zip(tree["stages"], _stages(cfg), strict=True):
+        for i in range(st.repeats):
+            for j, kind in enumerate(st.kinds):
+                if kind != "shared_attn":
+                    blocks.append(_leaf(stage[f"b{j}"] if st.group
+                                        else stage, dev, i))
+    leaves = {"embed": _to_tensor(tree["embed"], dev), "blocks": blocks,
+              "final_norm": {k: _to_tensor(v, dev)
+                             for k, v in tree["final_norm"].items()},
+              "lm_head": _leaf(tree["lm_head"], dev)}
+    if "shared" in tree:
+        leaves["shared"] = _leaf(tree["shared"], dev)
+    return Transformer(cfg, leaves)
 
 
 def _stacked(layers):
@@ -107,16 +115,33 @@ def to_jax_numpy(cfg: ArchConfig, params: Transformer) -> dict:
     entry of ``stages`` a scan stage, each block leaf restacked on the
     leading ``layers`` axis."""
     t = params.tree()
-    blocks, stages = t["blocks"], []
-    for _, n in _stages(cfg):
-        stages.append(_stacked(blocks[:n]))
-        blocks = blocks[n:]
+    blocks, stages = iter(t["blocks"]), []
+    for st in _stages(cfg):
+        own = [j for j, kind in enumerate(st.kinds) if kind != "shared_attn"]
+        layers = [{j: next(blocks) for j in own} for _ in range(st.repeats)]
+        if st.group:
+            stages.append({f"b{j}": _stacked([rep[j] for rep in layers])
+                           for j in own})
+        else:
+            stages.append(_stacked([rep[0] for rep in layers]) if own
+                          else {})
     head = t["lm_head"]
-    return {"embed": _to_numpy(t["embed"]), "stages": stages,
-            "final_norm": {k: _to_numpy(v)
-                           for k, v in t["final_norm"].items()},
-            "lm_head": (_packed_dict(head) if isinstance(head, PackedWeight)
-                        else _to_numpy(head))}
+    out = {"embed": _to_numpy(t["embed"]), "stages": stages}
+    if "shared" in t:
+        out["shared"] = _unstacked(t["shared"])
+    out["final_norm"] = {k: _to_numpy(v) for k, v in t["final_norm"].items()}
+    out["lm_head"] = (_packed_dict(head) if isinstance(head, PackedWeight)
+                      else _to_numpy(head))
+    return out
+
+
+def _unstacked(tree):
+    """A block's tree of one layer (the shared block) as numpy leaves."""
+    if isinstance(tree, dict):
+        return {k: _unstacked(v) for k, v in tree.items()}
+    if isinstance(tree, PackedWeight):
+        return _packed_dict(tree)
+    return _to_numpy(tree)
 
 
 def vision_from_jax_numpy(tree: dict, device="cuda") -> dict:

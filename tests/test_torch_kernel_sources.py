@@ -233,6 +233,28 @@ def test_the_paged_route_is_chosen_by_dtype_bits_and_rows():
         assert f"pick_route<T, {bits}, 128, 128>(a)" in quant
 
 
+@pytest.mark.parametrize("source,macro,wrapper", [
+    ("flash_attention.cu", "FLASH_CASE", fa),
+    ("paged_flash_decode.cu", "PICK", pfd)])
+def test_every_wrapper_head_pair_is_instantiated(source, macro, wrapper):
+    """The (dk, dv) pairs a wrapper lets through (``HEAD_DIMS``, zamba2's
+    (112, 112) among them) are the pairs its source dispatches on, each
+    once, so no launch finds an uninstantiated width; the decode route
+    deals its context columns out in 16-column blocks, which 112 (seven
+    blocks) divides, instead of the four-warp split that needed dv % 32."""
+    text = (CSRC / source).read_text()
+    pairs = [tuple(map(int, m)) for m in re.findall(
+        rf"^\s*{macro}\((\d+), (\d+)\)\s*$", text, re.M)]
+    assert sorted(pairs) == sorted(wrapper.HEAD_DIMS)
+    assert (112, 112) in pairs and len(set(pairs)) == len(pairs)
+    if source == "paged_flash_decode.cu":
+        start = text.index("struct DecodeTile {")
+        tile = text[start:_match(text, text.index("{", start), "{", "}")]
+        assert "NB = DV / 16" in tile and "% 32" not in tile
+        assert "DV % 32" not in _body(text, "paged_decode_mma")
+        assert pfd.QUANT_HEAD_DIMS == (128,)
+
+
 def test_the_quantized_chunk_route_widens_raw_rows_in_shared_memory():
     """On a quantized pool the mma kernel copies the raw rows and their
     scales with ``cp.async`` (a copy cannot dequantize) and widens each

@@ -185,7 +185,7 @@ def _restacked(specs, tc):
     leading."""
     from repro_torch.models.model import _stages
     blocks, stages = specs.pop("blocks"), []
-    for _, n in _stages(tc):
+    for n in (st.repeats for st in _stages(tc)):
         first = _structure(blocks[0])
         for b in blocks[1:n]:
             assert _structure(b) == first

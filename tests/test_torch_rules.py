@@ -145,6 +145,12 @@ def test_packed_matmuls_have_no_fallback_off_the_cpu():
     ("host_pool_pages", 8), ("spec_draft", "self"), ("decode_sharing", True),
     ("spill_dir", "/tmp/spill")])
 def test_serve_config_rejects_unserved_knobs(field, value):
+    """Each knob of a later item raises naming it; ``temperature`` was
+    one (item 7) and is served now, with ``ServeConfig.seed``."""
+    if field == "temperature":
+        sc = ServeConfig(**{field: value}, seed=5)
+        assert (sc.temperature, sc.seed) == (value, 5)
+        return
     with pytest.raises(ValueError,
                        match=rf"ServeConfig\.{field} .*ROADMAP queue 1 item"):
         ServeConfig(**{field: value})
@@ -273,6 +279,28 @@ def test_mla_moe_and_two_stage_programs_raise_naming_item_12(pattern):
     ((("scan", "mlstm", 1), ("scan", "attn_mlp", 1)), "tokens"),
     ((("scan", "attn_mlp", 2),), "embeds")])
 def test_group_and_recurrent_programs_raise_naming_item_13(pattern, mode):
+    """xLSTM blocks and embeds input raise naming item 13.  A group stage
+    and mamba blocks raised too before item 13a; each such program now
+    builds its blocks in the reference's order, a paged cache of pools
+    beside per-slot state (which needs ``batch``), and its 'prefill'
+    forward matches the reference's."""
+    kinds = {k for e in pattern for k in (
+        [e[1]] if e[0] == "scan" else [k for k, _ in e[1]])}
+    if mode == "tokens" and "mlstm" not in kinds:
+        cfg = ArchConfig(**MOE_FIELDS, pattern=pattern, ssm_state=8,
+                         ssm_headdim=16)
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        assert [type(b).__name__ for b in params.blocks] == (
+            ["MambaBlock", "AttnMlpBlock"] if pattern[0][0] == "group"
+            else ["MambaBlock"] * 2)
+        with pytest.raises(ValueError, match="needs batch"):
+            init_paged_cache(cfg, 4, 16, device="cpu")
+        cache = init_paged_cache(cfg, 4, 16, batch=3, device="cpu")
+        assert cache[0]["b0" if pattern[0][0] == "group" else "conv"] \
+            is not None
+        _prefill_matches_reference(cfg.with_(dtype=torch.float32))
+        return
     cfg = ArchConfig(**MOE_FIELDS, pattern=pattern, input_mode=mode)
     with pytest.raises(ValueError, match=r"ROADMAP queue 1 item 13"):
         init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -315,6 +343,23 @@ def test_launcher_serves_deepseek_reduced_on_cpu():
                        match=r"item 11\).*ROADMAP queue 1 item 16"):
         launcher.main(["--arch", "deepseek-v2-lite-16b", "--reduce",
                        "--device", "cpu", "--quant", "w4a16"])
+
+
+def test_launcher_serves_zamba2_reduced_on_cpu():
+    """zamba2-7b (reduced: a group of 2 x (2 mamba + the shared block),
+    then 2 mamba) through the serving launcher; ``--quant`` refuses it,
+    naming item 13."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launcher.main(["--arch", "zamba2-7b", "--reduce", "--device", "cpu",
+                       "--requests", "3", "--max-batch", "2",
+                       "--max-new-tokens", "4"])
+    lines = out.getvalue().splitlines()
+    assert sum(ln.startswith("req ") and "[done" in ln for ln in lines) == 3
+    with pytest.raises(NotImplementedError,
+                       match=r"Mamba2.*ROADMAP queue 1 item 13"):
+        launcher.main(["--arch", "zamba2-7b", "--reduce", "--device", "cpu",
+                       "--quant", "w4a16"])
 
 
 def test_packed_mla_weights_are_rejected():

@@ -8,8 +8,12 @@ must agree on each request's tokens, per-token logits (``atol=1e-5``),
 ``failed``, ``preempts``, TTFT ticks and handle status; the completion
 order; the counters; the swap queue's bytes; the page tables and
 refcounts; the IOTLB fault records; and every parked snapshot's metadata
-(``nbytes`` included) and contents.  Within the port, the pages a swap-in
-restores equal the snapshot bit for bit.
+(``nbytes`` included) and contents, recurrent state rows (``slot_rows``)
+included.  Within the port, the pages and state rows a swap-in restores
+equal the snapshot bit for bit.  With ``scans`` (models with mamba
+blocks) the JAX engine ticks eagerly and the port is fed its bf16-rounded
+scan weights (``tests/torch_hybrid_cases.py``), the flips counted in
+``Lockstep.flips``.
 """
 import jax
 import jax.numpy as jnp
@@ -64,14 +68,23 @@ def rolled_restore(eng):
     eng._swap_in = faulty
 
 
-def _leaf_names(cache):
-    return [k for stage in cache for k in sorted(stage)]
+def _leaf_names(eng):
+    """The pool leaves' names, a snapshot's ``pool_rows`` order (a group
+    stage's ``b<j>/<leaf>``): the last part says data or scale."""
+    def paths(tree, pre):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in paths(tree[k],
+                                                           f"{pre}{k}/")]
+        return [pre[:-1]]
+    names = [x for i, st in enumerate(eng.cache) for x in paths(st, f"{i}/")]
+    return [n for n, pooled in zip(names, eng._pooled) if pooled]
 
 
 def _dequantized(names, rows, kv_format):
     """Each data leaf of a snapshot through the format's dequantization
     with its ``<name>_scale`` leaf (fp pools: the rows themselves)."""
-    rows = dict(zip(names, [torch.from_numpy(np.array(r)) for r in rows]))
+    rows = dict(zip(names, [torch.from_numpy(np.array(r)) for r in rows],
+                    strict=True))
     if kv_format == "fp":
         return rows
     fmt = get_format(kv_format)
@@ -89,8 +102,9 @@ class Lockstep:
     references); ``restores`` counts the port's swap-ins checked bit
     for bit against their snapshots."""
 
-    def __init__(self, cfg_kw, serve_kw, plan, fault=False):
+    def __init__(self, cfg_kw, serve_kw, plan, fault=False, scans=False):
         jc, jp, tc, tp = params(cfg_kw)
+        self.scans, self.flips = scans, 0
         sc = dict(record_logits=True, **serve_kw)
         self.kv_format = sc.get("kv_format", "fp")
         self.je = JaxEngine(jc, jp, JaxServeConfig(**sc))
@@ -123,6 +137,11 @@ class Lockstep:
                 assert torch.equal(leaf[:, phys], rows), \
                     f"swap-in of request {sw.req.rid} did not restore its " \
                     "snapshot bit for bit"
+            for leaf, rows in zip(te._state_leaves(), sw.slot_rows,
+                                  strict=True):
+                assert torch.equal(leaf[:, slot], rows), \
+                    f"swap-in of request {sw.req.rid} did not restore its " \
+                    "state rows bit for bit"
             self.restores += 1
         te._swap_out, te._swap_in = swap_out, swap_in
 
@@ -140,8 +159,20 @@ class Lockstep:
 
     def tick(self):
         self._submit()
-        self.je.tick()
-        self.te.tick()
+        if not self.scans:
+            self.je.tick()
+            self.te.tick()
+        else:
+            from torch_hybrid_cases import (count_flips, port_roundings,
+                                            reference_roundings,
+                                            reference_scans)
+            calls, mine = [], []
+            with reference_scans(calls):
+                self.je.tick()
+            ref = reference_roundings(calls)
+            with port_roundings(record=mine, feed=ref):
+                self.te.tick()
+            self.flips += count_flips(mine, ref)
         self.compare()
 
     def run(self):
@@ -171,12 +202,18 @@ class Lockstep:
                 rid
         assert te.sched.swap_bytes() == je.sched.swap_bytes()
         assert len(te.sched.swapped) == len(je.sched.swapped)
-        names = _leaf_names(te.cache)
+        names = _leaf_names(te)
         for ts, js in zip(te.sched.swapped, je.sched.swapped):
             assert ts.req.rid == js.req.rid
             for f in SNAPSHOT_META:
                 assert getattr(ts, f) == getattr(js, f), (ts.req.rid, f)
-            assert ts.slot_rows == [] and len(js.slot_rows) == 0
+            assert len(ts.slot_rows) == len(js.slot_rows)
+            for a, b in zip(ts.slot_rows, js.slot_rows):
+                assert tuple(a.shape) == tuple(b.shape)
+                np.testing.assert_allclose(a.float().numpy(),
+                                           np.asarray(b, np.float32),
+                                           atol=ATOL, rtol=0,
+                                           err_msg="snapshot state rows")
             assert ts.spill_step is None and js.spill_step is None
             assert [tuple(r.shape) for r in ts.pool_rows] == \
                 [tuple(r.shape) for r in js.pool_rows]
